@@ -1,0 +1,106 @@
+"""Per-frame tracking.
+
+Port of ``vslam_tpu/pipeline/tracking.py`` (the non-keyframe path of the
+reference's ``next_step``): project landmarks, detect + describe the left
+image, guided 2D-gated landmark matching, RANSAC PnP localization and the
+constant-velocity motion-gate statistic. The L-capacity landmark arrays
+are projected in one shot and the in-view subset is compacted to a fixed
+P slots (newest first), so the matcher sees fixed [N] x [P, B] shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.state import LandmarkState
+from ..frontend.features import Features, extract_features
+from ..geometry import cameras as cam_models
+from ..geometry import lie
+from ..ops import hamming
+from ..ops.compact import compact_indices
+from ..solvers import pnp
+
+
+@dataclasses.dataclass
+class TrackResult:
+    feats: Features
+    match_lm: torch.Tensor       # [N] int64 global landmark slot or -1
+    inlier: torch.Tensor         # [N] bool (subset of matches)
+    had_candidate: torch.Tensor  # [N] bool: a gated landmark candidate
+    #                              existed (even if the ratio test failed)
+    T_w_c: torch.Tensor          # [7] estimated pose (RANSAC+GN result)
+    num_matches: torch.Tensor    # [] int64
+    num_inliers: torch.Tensor    # [] int64
+    motion_err: torch.Tensor     # [] float32 (gate statistic)
+    pnp_ok: torch.Tensor         # [] bool (enough matches & inliers)
+
+
+def project_landmarks(lm: LandmarkState, T_w_c, cam_name, intr, width,
+                      height, z_threshold):
+    """Project all landmarks; mask behind/out-of-image ones."""
+    p_c = lie.se3_apply(lie.se3_inv(T_w_c), lm.pos)
+    proj = cam_models.project(cam_name, intr, p_c)
+    ok = (lm.valid
+          & (p_c[:, 2] >= z_threshold)
+          & (proj[:, 0] >= 0) & (proj[:, 0] <= width)
+          & (proj[:, 1] >= 0) & (proj[:, 1] <= height))
+    return proj, ok
+
+
+def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
+                intr0, cam_name: str = "ds", num_features: int = 1500,
+                inview_cap: int = 2048, width: int = 752, height: int = 480,
+                z_threshold=0.1, match_max_dist_2d=20.0, match_threshold=70,
+                match_ratio=1.2, pnp_threshold=0.000018,
+                num_hypotheses: int = 256, min_matches=10,
+                quality_level=0.01, min_distance: int = 8,
+                rotate_features: bool = True, num_octaves: int = 1,
+                generator: torch.Generator = None) -> TrackResult:
+    """Track one left image against the map; ``generator`` drives the
+    RANSAC draws."""
+    feats = extract_features(img_l, num_features=num_features,
+                             quality_level=quality_level,
+                             min_distance=min_distance,
+                             rotate_features=rotate_features,
+                             num_octaves=num_octaves)
+
+    # ---- project + compact in-view landmarks (newest-first) ----
+    proj, in_view = project_landmarks(lm, predicted_pose, cam_name, intr0,
+                                      width, height, z_threshold)
+    sel, sel_valid = compact_indices(in_view, inview_cap, newest_first=True)
+    sel = torch.clamp(sel, 0, lm.pos.shape[0] - 1)
+    sel_valid = sel_valid & in_view[sel]
+
+    # ---- guided landmark matching ----
+    match_local, m_ok, had_cand = hamming.match_landmarks(
+        feats.bits, feats.valid, lm.bank_bits[sel], lm.bank_valid[sel],
+        feats.corners, proj[sel], sel_valid, max_dist_2d=match_max_dist_2d,
+        threshold=match_threshold, ratio=match_ratio)
+    local = torch.clamp(match_local, min=0)
+    match_lm = torch.where(m_ok, sel[local], torch.full_like(local, -1))
+    num_matches = m_ok.sum()
+
+    # ---- PnP localization ----
+    bearings = cam_models.unproject(cam_name, intr0, feats.corners)
+    points = lm.pos[sel][local]
+    T_ransac, inlier, num_inl, pnp_valid = pnp.ransac_pnp(
+        points, bearings, m_ok, pnp_threshold,
+        num_hypotheses=num_hypotheses, generator=generator)
+    enough = (num_matches >= min_matches) & pnp_valid
+    T_w_c = torch.where(enough, T_ransac, predicted_pose)
+    inlier = inlier & enough & m_ok
+
+    # ---- motion-model gate ----
+    se3_vel = lie.se3_log(lie.se3_mul(lie.se3_inv(gate_pose), T_w_c))
+    err = torch.sum(torch.abs(se3_vel[:3] - lie.se3_log(vel)[:3]))
+    # a non-finite pose/err must read as a FAILED gate
+    err = torch.where(torch.isfinite(err), err,
+                      torch.full_like(err, float("inf")))
+
+    return TrackResult(
+        feats=feats, match_lm=match_lm, inlier=inlier,
+        had_candidate=had_cand, T_w_c=T_w_c, num_matches=num_matches,
+        num_inliers=torch.where(enough, num_inl, torch.zeros_like(num_inl)),
+        motion_err=err, pnp_ok=enough)
