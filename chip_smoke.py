@@ -13,11 +13,14 @@ skipped.
 3. Holds each kernel against its plain PyTorch version on the card:
    exact integer equality at the main path's shapes (landmark top-2:
    N=1500 keypoints, P=2048 landmarks, B=4 bank slots; descriptor top-2:
-   N=M=1500) and at ragged and all-invalid shapes; at the main-path
-   shapes, prints the device time per call (``torch.profiler``) of the
-   kernel as the main path calls it (descriptor packing included), of the
-   kernel alone, and of the plain version, and the time per call with the
-   host's share (CUDA events around each call).
+   N=M=1500) and at ragged and all-invalid shapes; the descriptor top-2
+   also at its tile and chunk edges, on tie-heavy inputs and on strided
+   input, and it must refuse misaligned input. At the main-path shapes,
+   prints the device time per call (``torch.profiler``) of the kernel as
+   the main path calls it (for the landmark top-2, descriptor packing
+   included), of the kernel alone (the landmark top-2 on packed input),
+   and of the plain version, and the time per call with the host's share
+   (CUDA events around each call).
 4. Runs the port's ``StreamingVO`` at the benchmark's configuration
    (752x480 stereo, 1500 features, 65536 landmarks, 1024 keyframes, 2048
    in-view landmarks, window BA at 24 cameras / 4096 points / 12288
@@ -116,12 +119,14 @@ def device_ms(fn, iters=20, only=None):
     return total_us / iters / 1e3
 
 
-def timings(kernel, packed_kernel, plain, args, packed_args, name):
-    """Kernel and plain version timed three ways at the same inputs."""
+def timings(kernel, alone, plain, args, alone_args, name):
+    """Kernel and plain version timed three ways at the same inputs;
+    ``alone(*alone_args)`` is the launch whose ``{name}_kernel`` device
+    time is the kernel alone."""
     return dict(
         ms=device_ms(lambda: kernel(*args)),
         plain_ms=device_ms(lambda: plain(*args)),
-        kernel_only_ms=device_ms(lambda: packed_kernel(*packed_args),
+        kernel_only_ms=device_ms(lambda: alone(*alone_args),
                                  only=f"{name}_kernel"),
         call_ms=call_ms(lambda: kernel(*args)),
         plain_call_ms=call_ms(lambda: plain(*args)))
@@ -132,7 +137,8 @@ def max_abs_err(got, want):
                if g.numel() else 0 for g, w in zip(got, want))
 
 
-def hamming_inputs(rng, n, m, dev, valid_frac=0.9, near=False):
+def hamming_inputs(rng, n, m, dev, valid_frac=0.9, near=False,
+                   valid_b_frac=None):
     a = rng.randint(0, 2, (n, 256)).astype(np.uint8)
     b = rng.randint(0, 2, (m, 256)).astype(np.uint8)
     if near and m:
@@ -141,9 +147,9 @@ def hamming_inputs(rng, n, m, dev, valid_frac=0.9, near=False):
         src = rng.randint(0, max(n, 1), m)
         flip = rng.rand(m, 256) < rng.choice([0.02, 0.05, 0.1], (m, 1))
         b = np.where(flip, 1 - a[src], a[src]).astype(np.uint8)
+    vb = valid_frac if valid_b_frac is None else valid_b_frac
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    return (t(a), t(b), t(rng.rand(n) < valid_frac),
-            t(rng.rand(m) < valid_frac))
+    return t(a), t(b), t(rng.rand(n) < valid_frac), t(rng.rand(m) < vb)
 
 
 def landmark_inputs(rng, n, p, nb, dev, lm_frac=0.9, bank_frac=0.7):
@@ -163,35 +169,51 @@ def landmark_inputs(rng, n, p, nb, dev, lm_frac=0.9, bank_frac=0.7):
 
 
 def phase_kernels(dev):
+    from vslam_tpu_torch import synthetic
     from vslam_tpu_torch.ops import cuda_hamming, describe, hamming
 
     rng = np.random.RandomState(0)
     report = {}
 
     # ---- K2: descriptor top-2 ----
-    cases = [(1500, 1500, 0.9, True), (1500, 1500, 0.9, False),
-             (130, 600, 0.9, False), (1, 129, 0.5, True),
-             (257, 0, 0.9, False), (64, 64, 0.0, False)]
+    # main path; ragged; M=0; all-invalid A; all-invalid B; the kernel's
+    # edges: N=1, N not a multiple of 16 rows, M under one 16-candidate
+    # chunk, M not a multiple of a chunk or of a block's 256-candidate step
+    cases = [(1500, 1500, 0.9, True, None), (1500, 1500, 0.9, False, None),
+             (130, 600, 0.9, False, None), (1, 129, 0.5, True, None),
+             (257, 0, 0.9, False, None), (64, 64, 0.0, False, None),
+             (64, 64, 0.9, True, 0.0), (1, 1, 1.0, True, None),
+             (17, 15, 0.9, True, None), (16, 32, 1.0, True, None),
+             (33, 257, 0.9, True, None), (100, 2049, 0.9, True, None)]
+    inputs = [(f"N={n} M={m}", hamming_inputs(rng, n, m, dev, vf, near, vbf))
+              for n, m, vf, near, vbf in cases]
+    inputs += [(case, tuple(torch.as_tensor(x, device=dev)
+                            for x in synthetic.descriptor_ties(case)))
+               for case in synthetic.DESCRIPTOR_TIE_CASES]
+    a, b, va, vb = inputs[0][1]
+    inputs.append(("strided B", (a, b.t().contiguous().t(), va, vb)))
     err = 0
-    for n, m, vf, near in cases:
-        args = hamming_inputs(rng, n, m, dev, vf, near)
-        got = cuda_hamming.hamming_top2(*args)
+    for label, args in inputs:
         want = hamming.hamming_top2_plain(*args)
-        e = max_abs_err(got, want)
+        e = max_abs_err(cuda_hamming.hamming_top2(*args), want)
         check(e == 0, f"hamming_top2 differs from its plain version at "
-                      f"N={n} M={m} (max abs err {e})")
+                      f"{label} (max abs err {e})")
         err = max(err, e)
-    # all-invalid candidates give the reference's 256 init
-    a, b, va, _ = hamming_inputs(rng, 32, 64, dev)
-    best = cuda_hamming.hamming_top2(a, b, va, torch.zeros_like(b[:, 0],
-                                                                dtype=bool))[0]
-    check(int(best.min()) == 256, "hamming_top2 all-invalid case")
+        if not bool(args[3].any()):  # no candidate: the 256 init, arg 0
+            check(int(want[0].min()) == 256 and int(want[2].max()) == 0,
+                  f"hamming_top2 without candidates at {label}")
+    shifted = torch.empty(a.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = shifted[1:].view(a.shape)
+    try:
+        cuda_hamming.hamming_top2(shifted, b, va, vb)
+    except ValueError:
+        pass
+    else:
+        check(False, "hamming_top2 accepted a misaligned input")
     main = hamming_inputs(rng, 1500, 1500, dev, 0.95, True)
-    packed = (describe.pack_bits(main[0]), describe.pack_bits(main[1]),
-              *main[2:])
     report["hamming_top2"] = dict(max_abs_err=err, **timings(
-        cuda_hamming.hamming_top2, cuda_hamming.hamming_top2_packed,
-        hamming.hamming_top2_plain, main, packed, "hamming_top2"))
+        cuda_hamming.hamming_top2, cuda_hamming.hamming_top2,
+        hamming.hamming_top2_plain, main, main, "hamming_top2"))
 
     # ---- K1: landmark top-2 ----
     cases = [(1500, 2048, 4, 0.9, 0.7), (1500, 2048, 4, 1.0, 1.0),
@@ -215,8 +237,8 @@ def phase_kernels(dev):
         hamming.landmark_top2_plain, main, packed, "landmark_top2"))
     torch.cuda.synchronize()
     for name, r in report.items():
-        print(f"kernel {name}: exact vs plain at main-path shapes; device "
-              f"{r['ms']:.4f} ms per call with packing, "
+        print(f"kernel {name}: exact vs plain in every case; device "
+              f"{r['ms']:.4f} ms per call as the main path calls it, "
               f"{r['kernel_only_ms']:.4f} ms kernel alone (plain "
               f"{r['plain_ms']:.4f} ms); per call with host "
               f"{r['call_ms']:.4f} ms (plain {r['plain_call_ms']:.4f} ms)",

@@ -5,15 +5,17 @@ without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each hand-written kernel must equal its plain PyTorch version exactly (the
-outputs are integers), at the main path's shapes and at ragged and
-all-invalid shapes, and the dispatchers must route CUDA tensors through
-the kernels.
+outputs are integers), at the main path's shapes, at ragged, chunk-edge
+and all-invalid shapes and on tie-heavy inputs
+(``synthetic.descriptor_ties``, which the CPU parity tests share), and
+the dispatchers must route CUDA tensors through the kernels.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vslam_tpu_torch import synthetic
 from vslam_tpu_torch.ops import cuda_hamming, hamming
 
 pytestmark = pytest.mark.cuda
@@ -27,15 +29,16 @@ def dev():
     return torch.device("cuda")
 
 
-def top2_inputs(rng, n, m, dev, valid=0.9):
+def top2_inputs(rng, n, m, dev, valid=0.9, valid_b=None):
     a = rng.randint(0, 2, (n, 256)).astype(np.uint8)
     b = rng.randint(0, 2, (m, 256)).astype(np.uint8)
     if n and m:
         src = rng.randint(0, n, m // 2)
         flip = rng.rand(m // 2, 256) < 0.05
         b[: m // 2] = np.where(flip, 1 - a[src], a[src])
+    valid_b = valid if valid_b is None else valid_b
     return tuple(torch.as_tensor(x, device=dev) for x in
-                 (a, b, rng.rand(n) < valid, rng.rand(m) < valid))
+                 (a, b, rng.rand(n) < valid, rng.rand(m) < valid_b))
 
 
 def landmark_inputs(rng, n, p, nb, dev, lm_valid=0.9, bank_valid=0.7):
@@ -57,13 +60,47 @@ def assert_equal(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize("n,m,valid", [(1500, 1500, 0.95), (130, 600, 0.9),
-                                       (1, 129, 0.5), (257, 0, 0.9),
-                                       (64, 64, 0.0)])
-def test_hamming_top2_kernel_equals_plain(dev, n, m, valid):
-    args = top2_inputs(np.random.RandomState(n + m), n, m, dev, valid)
+# main path; ragged; M=0; all-invalid A, all-invalid B; the kernel's edges:
+# N=1, N not a multiple of its 16-row tile, M under one 16-candidate
+# chunk, M not a multiple of a chunk or of the 16 warps' 256-candidate step
+@pytest.mark.parametrize("n,m,valid,valid_b", [
+    (1500, 1500, 0.95, 0.95), (130, 600, 0.9, 0.9), (1, 129, 0.5, 0.5),
+    (257, 0, 0.9, 0.9), (64, 64, 0.0, 0.9), (64, 64, 0.9, 0.0),
+    (1, 1, 1.0, 1.0), (5, 7, 0.9, 0.9), (17, 31, 0.9, 0.9),
+    (16, 32, 1.0, 1.0), (33, 257, 0.9, 0.9), (100, 2049, 0.9, 0.9)])
+def test_hamming_top2_kernel_equals_plain(dev, n, m, valid, valid_b):
+    args = top2_inputs(np.random.RandomState(n + m), n, m, dev, valid,
+                       valid_b)
     assert_equal(cuda_hamming.hamming_top2(*args),
                  hamming.hamming_top2_plain(*args))
+
+
+@pytest.mark.parametrize("case", synthetic.DESCRIPTOR_TIE_CASES)
+def test_hamming_top2_kernel_ties(dev, case):
+    args = tuple(torch.as_tensor(x, device=dev)
+                 for x in synthetic.descriptor_ties(case))
+    want = hamming.hamming_top2_plain(*args)
+    assert_equal(cuda_hamming.hamming_top2(*args), want)
+    # the cases do decide rows by ties and by the 256 rule
+    best, second, _ = want
+    assert bool((best == second).any())
+    if case == "complement":
+        assert bool((best == 256).any())
+
+
+def test_hamming_top2_strided_and_misaligned_input(dev):
+    """Strided inputs are copied and give the plain version's result; a
+    contiguous descriptor tensor off 16-byte alignment raises."""
+    a, b, va, vb = top2_inputs(np.random.RandomState(0), 32, 48, dev)
+    want = hamming.hamming_top2_plain(a, b, va, vb)
+    assert_equal(cuda_hamming.hamming_top2(
+        a, torch.stack([b, b], 2)[:, :, 0], va,
+        torch.stack([vb, vb], 1)[:, 0]), want)
+    shifted = torch.empty(32 * 256 + 1, dtype=torch.uint8, device=dev)
+    shifted = shifted[1:].view(32, 256)
+    shifted.copy_(a)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_hamming.hamming_top2(shifted, b, va, vb)
 
 
 @pytest.mark.parametrize("n,p,nb,lm_valid,bank_valid", [

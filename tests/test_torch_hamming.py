@@ -4,7 +4,9 @@ The plain PyTorch versions of the two kernels (``landmark_top2_plain``,
 ``hamming_top2_plain``) are held against the Pallas kernels run with
 ``interpret=True`` (as tests/test_pallas_hamming.py runs them) and against
 the JAX CPU matchers. Distances are exact integers, so every comparison is
-exact; the argmin must agree wherever the best distance is strict.
+exact. The descriptor top-2's argmin is held on tied rows too (the
+lowest-index rule), on tie-heavy inputs shared with the card tests; the
+landmark top-2's wherever the best distance is strict.
 
 The one documented split: ``any_candidate``. The JAX CPU path (which the
 JAX tests pin) reports "some valid landmark inside the 2D gate"; the
@@ -20,6 +22,7 @@ import torch
 
 from vslam_tpu.ops import hamming as jham
 from vslam_tpu.ops import pallas_hamming as jpal
+from vslam_tpu_torch import synthetic
 from vslam_tpu_torch.ops import describe as tdesc
 from vslam_tpu_torch.ops import hamming as tham
 
@@ -56,21 +59,52 @@ def strict_rows(best, second, valid):
     return (best < second) & valid & (best < 256)
 
 
+def assert_top2_matches_jax(a, b, va, vb):
+    """hamming_top2_plain against the JAX CPU path (argmin over the padded
+    distance matrix) on every row and the Pallas kernel; returns the
+    port's (best, second, arg)."""
+    b1, b2, arg = (x.numpy() for x in tham.hamming_top2_plain(
+        t(a), t(b), t(va), t(vb)))
+    assert b1.dtype == np.int32 and arg.dtype == np.int32
+    d = jham.distance_matrix(jnp.asarray(a), jnp.asarray(b), jnp.asarray(va),
+                             jnp.asarray(vb))
+    cb1, cb2 = (np.asarray(x) for x in jham._top2_min(d, 1))
+    np.testing.assert_array_equal(b1, cb1)
+    np.testing.assert_array_equal(b2, cb2)
+    np.testing.assert_array_equal(arg, np.asarray(jnp.argmin(d, axis=1)))
+    pb1, pb2, parg = (np.asarray(x) for x in jpal.hamming_top2(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(va), jnp.asarray(vb),
+        interpret=True))
+    np.testing.assert_array_equal(b1, pb1)
+    np.testing.assert_array_equal(b2, pb2)
+    # The Pallas path biases invalid columns far above 256 instead of
+    # padding with 256, so on an invalid A row, or a row whose candidates
+    # all lie at 256, its arg is that row's real argmin where the CPU path
+    # (and the port) give 0. Those rows are held to the CPU path only.
+    rows = va & (b1 < 256)
+    np.testing.assert_array_equal(arg[rows], parg[rows])
+    return b1, b2, arg
+
+
 # the ragged shapes of tests/test_pallas_hamming.py, plus tile edges
 @pytest.mark.parametrize("n,m", [(100, 300), (128, 512), (130, 600),
                                  (1, 1), (257, 129)])
 def test_hamming_top2_matches_pallas(n, m):
-    a, b, va, vb = top2_inputs(n, m, n + m)
-    pb1, pb2, parg = (np.asarray(x) for x in jpal.hamming_top2(
-        jnp.asarray(a), jnp.asarray(b), jnp.asarray(va), jnp.asarray(vb),
-        interpret=True))
-    b1, b2, arg = (x.numpy() for x in tham.hamming_top2_plain(
-        t(a), t(b), t(va), t(vb)))
-    np.testing.assert_array_equal(b1, pb1)
-    np.testing.assert_array_equal(b2, pb2)
-    s = strict_rows(b1, b2, va)
-    np.testing.assert_array_equal(arg[s], parg[s])
-    assert b1.dtype == np.int32 and arg.dtype == np.int32
+    assert_top2_matches_jax(*top2_inputs(n, m, n + m))
+
+
+@pytest.mark.parametrize("case", synthetic.DESCRIPTOR_TIE_CASES)
+def test_hamming_top2_ties_match_jax(case):
+    a, b, va, vb = synthetic.descriptor_ties(case)
+    b1, b2, arg = assert_top2_matches_jax(a, b, va, vb)
+    # the rows that ties decide are really there
+    tied = va & (b1 == b2) & (b1 < 256)
+    assert tied.any()
+    if case == "dup_tiles":
+        assert (tied & (arg < 100)).any()  # the copies lie further on
+    if case == "complement":
+        assert np.array_equal(b1[:4][va[:4]], np.full(va[:4].sum(), 256))
+        assert (arg[:4] == 0).all()
 
 
 def test_hamming_top2_all_invalid_columns():
@@ -173,6 +207,33 @@ def test_distance_matrix_and_packing_match_jax():
     np.testing.assert_array_equal(packed.numpy(),
                                   np.asarray(jdesc.pack_bits(jnp.asarray(a))))
     np.testing.assert_array_equal(tdesc.unpack_bits(packed).numpy(), a)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "strided", "misaligned"])
+def test_cuda_wrapper_input_checks(layout):
+    """The descriptor top-2 kernel reads its inputs with 16-byte loads:
+    contiguous and aligned pass as they are, strided ones are copied, and
+    contiguous misaligned ones raise (checked on CPU tensors; the launch
+    itself needs the card)."""
+    from vslam_tpu_torch.ops import cuda_hamming
+
+    base = torch.zeros(64 * 256 + 16, dtype=torch.uint8)
+    offset = (-base.data_ptr()) % 16
+    x = base[offset:offset + 64 * 256].view(64, 256)
+    if layout == "strided":
+        x = x.t().contiguous().t()
+    elif layout == "misaligned":
+        x = base[offset + 1:offset + 1 + 64 * 256].view(64, 256)
+    args = (x, "bits", torch.uint8, (64, 256), torch.device("cpu"))
+    if layout == "aligned":
+        assert cuda_hamming._check(*args, align=16) is x
+    elif layout == "strided":
+        got = cuda_hamming._check(*args, align=16)
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, x)
+    else:
+        with pytest.raises(ValueError, match="aligned"):
+            cuda_hamming._check(*args, align=16)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

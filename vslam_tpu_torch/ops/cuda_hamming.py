@@ -6,13 +6,15 @@ repository's packages), a shared library with a plain C interface that is
 loaded with ``ctypes``. The build is keyed on a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
 
-Each wrapper packs the descriptor bits into the kernel's 32-byte layout
-(``describe.pack_bits``) and calls the ``*_packed`` launcher, which checks
-its inputs, allocates the outputs, launches on PyTorch's current stream,
+``hamming_top2`` hands the {0,1} descriptor bytes to the kernel, which
+packs them in its load stage and reads them with 16-byte loads: a strided
+input is copied, and a contiguous one that is not 16-byte aligned raises.
+``landmark_top2`` packs the descriptor bits into the kernel's 32-byte
+layout and calls ``landmark_top2_packed``. Each launcher checks its
+inputs, allocates the outputs, launches on PyTorch's current stream,
 raises if the launch was refused, and adds one to its entry of
-``LAUNCHES``. The plain PyTorch versions of the same functions
-are ``ops/hamming.py``'s ``landmark_top2_plain`` and
-``hamming_top2_plain``.
+``LAUNCHES``. The plain PyTorch versions of the same functions are
+``ops/hamming.py``'s ``landmark_top2_plain`` and ``hamming_top2_plain``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ LIBRARY = BUILD_DIR / "libhamming.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_BANK = 8  # kMaxBank in the source
+# hamming_top2's key holds the candidate index in 23 bits (kArgBits)
+MAX_CANDIDATES = 1 << 23
 
 _lock = threading.Lock()
 _lib = None
@@ -95,7 +99,12 @@ def _load():
     return _lib
 
 
-def _check(t, name, dtype, shape, device):
+def _check(t, name, dtype, shape, device, align=1):
+    """Checks device, dtype and shape and returns ``t`` contiguous (a
+    strided ``t`` is copied). The kernel reads the result with
+    ``align``-byte loads, so a contiguous ``t`` that is not ``align``-byte
+    aligned raises.
+    """
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -103,7 +112,11 @@ def _check(t, name, dtype, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    return t.contiguous()
+    t = t.contiguous()
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} is not {align}-byte aligned; the kernel "
+                         f"reads it with {align}-byte loads")
+    return t
 
 
 def _packed(bits, name, rows, device):
@@ -125,23 +138,16 @@ def _raise_on(err: int, kernel: str):
 def hamming_top2(bits_a, bits_b, valid_a, valid_b):
     """Kernel version of ``hamming.hamming_top2_plain`` (CUDA tensors).
 
-    bits_* [N/M, 256] uint8 {0,1}, valid_* [N/M] bool. Returns (best,
-    second, arg) int32 [N].
+    bits_* [N/M, 256] uint8 {0,1} (16-byte aligned where contiguous),
+    valid_* [N/M] bool. Returns (best, second, arg) int32 [N].
     """
     dev = _cuda_device(bits_a, "hamming_top2")
     n, m = bits_a.shape[0], bits_b.shape[0]
-    return hamming_top2_packed(_packed(bits_a, "bits_a", (n,), dev),
-                               _packed(bits_b, "bits_b", (m,), dev),
-                               valid_a, valid_b)
-
-
-def hamming_top2_packed(a, b, valid_a, valid_b):
-    """``hamming_top2`` on descriptors already packed to [N/M, 32] uint8
-    (``describe.pack_bits`` layout): the launch itself."""
-    dev = _cuda_device(a, "hamming_top2")
-    n, m = a.shape[0], b.shape[0]
-    a = _check(a, "a", torch.uint8, (n, 32), dev)
-    b = _check(b, "b", torch.uint8, (m, 32), dev)
+    if m > MAX_CANDIDATES:
+        raise ValueError(f"{m} candidates; the kernel takes at most "
+                         f"{MAX_CANDIDATES}")
+    a = _check(bits_a, "bits_a", torch.uint8, (n, 256), dev, align=16)
+    b = _check(bits_b, "bits_b", torch.uint8, (m, 256), dev, align=16)
     va = _check(valid_a, "valid_a", torch.bool, (n,), dev)
     vb = _check(valid_b, "valid_b", torch.bool, (m,), dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)

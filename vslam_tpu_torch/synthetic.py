@@ -273,3 +273,45 @@ def _compose_np(T1, T2):
     ])
     t = T1[:3] + _quat_rotate_np(q1, T2[:3])
     return np.concatenate([t, q])
+
+
+# Descriptor sets for the Hamming top-2 (no counterpart in the JAX
+# package): inputs where ties decide the result, shared by the parity
+# tests, the card tests and chip_smoke.py.
+
+DESCRIPTOR_TIE_CASES = ("dup_tiles", "equidistant", "complement", "all_same")
+
+
+def descriptor_ties(case: str, seed: int = 7):
+    """{0,1} descriptors (a [N, 256], b [M, 256] uint8) and validity
+    (va [N], vb [M] bool), numpy, where the argmin's lowest-index rule and
+    the multiset second-best decide rows.
+
+    dup_tiles: exact duplicates of near-match B rows in other 128- and
+    512-wide tiles. equidistant: several B rows at one distance from an A
+    row. complement: every candidate at distance 256 from A rows 0-3 (so
+    best == 256) and at one equal distance from the others. all_same:
+    every B row identical.
+    """
+    rng = np.random.RandomState(seed)
+    n, m = {"dup_tiles": (40, 1100), "equidistant": (40, 600),
+            "complement": (24, 300), "all_same": (24, 700)}[case]
+    a = rng.randint(0, 2, (n, 256)).astype(np.uint8)
+    b = rng.randint(0, 2, (m, 256)).astype(np.uint8)
+    if case == "dup_tiles":
+        src = rng.randint(0, n, 100)
+        b[:100] = np.where(rng.rand(100, 256) < 0.05, 1 - a[src], a[src])
+        for start in (130, 600, 1000):
+            b[start:start + 100] = b[:100]
+    elif case == "equidistant":
+        for i in range(20):
+            dist = rng.randint(0, 40)
+            for j in rng.choice(m, 3, replace=False):
+                b[j] = a[i]
+                b[j, rng.choice(256, dist, replace=False)] ^= 1
+    elif case == "complement":
+        a[1:4] = a[0]
+        b[:] = 1 - a[0]
+    else:
+        b[:] = a[5]
+    return a, b, rng.rand(n) < 0.9, rng.rand(m) < 0.9
