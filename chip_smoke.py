@@ -13,14 +13,18 @@ skipped.
 3. Holds each kernel against its plain PyTorch version on the card:
    exact integer equality at the main path's shapes (landmark top-2:
    N=1500 keypoints, P=2048 landmarks, B=4 bank slots; descriptor top-2:
-   N=M=1500) and at ragged and all-invalid shapes; the descriptor top-2
-   also at its tile and chunk edges, on tie-heavy inputs and on strided
-   input, and it must refuse misaligned input. At the main-path shapes,
-   prints the device time per call (``torch.profiler``) of the kernel as
-   the main path calls it (for the landmark top-2, descriptor packing
-   included), of the kernel alone (the landmark top-2 on packed input),
-   and of the plain version, and the time per call with the host's share
-   (CUDA events around each call).
+   N=M=1500), at ragged and all-invalid shapes, at each kernel's edges
+   (tiles, chunks, gate steps, bank widths 0, 1, 3 and 8, every landmark
+   inside the gate and none), on tie-heavy inputs and on strided input;
+   both must refuse misaligned input. At the main-path shapes, prints
+   from one ``torch.profiler`` window the device time per call of
+   everything the call launches ("as the main path calls it"), of the
+   kernel alone and the device operations per call, the plain version's
+   device time, the time per call with the host's share (CUDA events
+   around each call), the least time the card could take (``bound_ms``:
+   the bytes the function must move at 3.35 TB/s, or its operations at
+   the card's peak rate for their type, whichever is larger), and, for
+   the landmark top-2, the mean number of gated landmarks per keypoint.
 4. Runs the port's ``StreamingVO`` at the benchmark's configuration
    (752x480 stereo, 1500 features, 65536 landmarks, 1024 keyframes, 2048
    in-view landmarks, window BA at 24 cameras / 4096 points / 12288
@@ -54,6 +58,12 @@ import torch
 JAX_CPU_KF_ATE_M = 0.027797708416439467
 
 WARMUP_FRAMES = 8
+
+# NVIDIA H100 SXM peaks (data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12  # int8 tensor cores: the fastest integer rate
+#                           listed, taken for the 1-bit products
 
 
 def check(cond, msg):
@@ -98,10 +108,15 @@ def call_ms(fn, iters=50, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(fn, iters=20, only=None):
-    """Device milliseconds per call of ``fn``: the summed self device time
-    of the kernels and copies it launches, from ``torch.profiler``
-    (optionally only kernels whose name contains ``only``)."""
+def device_ms(fn, only, iters=20):
+    """Device time per call of ``fn`` from one ``torch.profiler`` window:
+    (ms of every kernel and copy it launches, ms of the kernels whose name
+    contains ``only``, device operations per call, device events seen).
+
+    The profiler may drop an odd event of the window (19 of 20 launches
+    of one kernel have been seen), so each device operation is counted
+    per call as ceil(its events / calls), at least one for any operation
+    seen at all, and timed as its mean event time that many times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -111,25 +126,76 @@ def device_ms(fn, iters=20, only=None):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        evt.self_device_time_total for evt in prof.key_averages()
-        if evt.device_type == torch.autograd.DeviceType.CUDA
-        and (only is None or only in evt.key))
-    check(total_us > 0, f"the profiler saw no device time for {only or fn}")
-    return total_us / iters / 1e3
+    events = [evt for evt in prof.key_averages()
+              if evt.device_type == torch.autograd.DeviceType.CUDA
+              and evt.count > 0]
+    check(events and sum(evt.self_device_time_total for evt in events) > 0,
+          f"the profiler saw no device time for {only}")
+    per_call = {evt.key: -(-evt.count // iters) for evt in events}
+    us = {evt.key: evt.self_device_time_total / evt.count * per_call[evt.key]
+          for evt in events}
+    return (sum(us.values()) / 1e3,
+            sum(t for key, t in us.items() if only in key) / 1e3,
+            sum(per_call.values()), sum(evt.count for evt in events))
 
 
-def timings(kernel, alone, plain, args, alone_args, name):
-    """Kernel and plain version timed three ways at the same inputs;
-    ``alone(*alone_args)`` is the launch whose ``{name}_kernel`` device
-    time is the kernel alone."""
+def timings(kernel, plain, args, name):
+    """Kernel and plain version timed at the same inputs, the kernel as
+    the main path calls it: its ``{name}_kernel`` device time is the
+    kernel alone."""
+    ms, kernel_only_ms, ops, seen = device_ms(lambda: kernel(*args),
+                                              f"{name}_kernel")
     return dict(
-        ms=device_ms(lambda: kernel(*args)),
-        plain_ms=device_ms(lambda: plain(*args)),
-        kernel_only_ms=device_ms(lambda: alone(*alone_args),
-                                 only=f"{name}_kernel"),
+        ms=ms, kernel_only_ms=kernel_only_ms, device_ops_per_call=ops,
+        device_events_seen=seen,
+        plain_ms=device_ms(lambda: plain(*args), "")[0],
         call_ms=call_ms(lambda: kernel(*args)),
         plain_call_ms=call_ms(lambda: plain(*args)))
+
+
+def bound(nbytes, ops_s):
+    """(bound_ms, bound_by): the bytes over the memory rate against the
+    operations' seconds at their peak rates, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, ops_s) * 1e3,
+            "bytes" if t_bytes >= ops_s else "operations")
+
+
+def hamming_bound(a, b, va, vb):
+    """The descriptor top-2 must read the valid rows of A and B (256
+    {0,1} bytes each) and both validity vectors, and write three int32
+    per row of A; it takes a 256-bit distance (256 ANDs and 256
+    popcount-adds) for each valid pair."""
+    na, nb = int(va.sum()), int(vb.sum())
+    nbytes = 256 * (na + nb) + va.numel() + vb.numel() + 12 * va.numel()
+    return bound(nbytes, na * nb * 512 / INT8_OPS_PER_S)
+
+
+def landmark_bound(kp, kv, kxy, bank, bv, lxy, lv, max_dist_2d):
+    """The landmark top-2 must read every validity and xy, the descriptor
+    bytes of the keypoints that gate some landmark and of the valid bank
+    slots of the landmarks that some keypoint gates, and write three
+    int32 and a bool per keypoint; it tests the gate (2 subtractions, 2
+    products, a sum and a compare in float32) for each valid keypoint and
+    valid landmark, and takes a 256-bit distance (512 operations) for each
+    gated pair and valid slot. Returns (bound_ms, bound_by, the mean and
+    the largest number of gated landmarks per valid keypoint)."""
+    from vslam_tpu_torch.ops import hamming
+
+    diff = kxy[:, None, :] - lxy[None, :, :]
+    gate = ((torch.sum(diff * diff, dim=-1)
+             < hamming.gate_radius_sq(max_dist_2d))
+            & lv[None, :] & kv[:, None])  # the plain version's 2D gate
+    n, p = gate.shape
+    rows = int(gate.any(dim=1).sum())
+    slots = int((bv & gate.any(dim=0)[:, None]).sum())
+    pair_slots = int((gate.float() @ bv.float()).sum())
+    nbytes = (256 * (rows + slots) + n * (1 + 8) + p * (1 + 8) + bv.numel()
+              + 13 * n)
+    ops_s = (6 * int(kv.sum()) * int(lv.sum()) / F32_OPS_PER_S
+             + 512 * pair_slots / INT8_OPS_PER_S)
+    per_kp = gate.sum(dim=1)[kv].float()
+    return (*bound(nbytes, ops_s), float(per_kp.mean()), int(per_kp.max()))
 
 
 def max_abs_err(got, want):
@@ -154,10 +220,10 @@ def hamming_inputs(rng, n, m, dev, valid_frac=0.9, near=False,
 
 def landmark_inputs(rng, n, p, nb, dev, lm_frac=0.9, bank_frac=0.7):
     kp = rng.randint(0, 2, (n, 256)).astype(np.uint8)
-    src = rng.randint(0, max(n, 1), (p, nb))
+    src = rng.randint(0, max(n, 1), (p, max(nb, 1)))
     flip = rng.rand(p, nb, 256) < 0.08
-    bank = (np.where(flip, 1 - kp[src], kp[src]).astype(np.uint8)
-            if n else rng.randint(0, 2, (p, nb, 256)).astype(np.uint8))
+    near = kp[src[:, :nb]] if n else rng.randint(0, 2, (p, nb, 256))
+    bank = np.where(flip, 1 - near, near).astype(np.uint8)
     kxy = (rng.rand(n, 2) * [752, 480]).astype(np.float32)
     # projected landmarks near their source keypoint, some outside the gate
     lxy = (kxy[src[:, 0]] if n else rng.rand(p, 2) * [752, 480]) + \
@@ -168,9 +234,26 @@ def landmark_inputs(rng, n, p, nb, dev, lm_frac=0.9, bank_frac=0.7):
             t(rng.rand(p) < lm_frac), 20.0)
 
 
+def refuses(fn, what):
+    try:
+        fn()
+    except ValueError:
+        return
+    check(False, f"{what} accepted a misaligned input")
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element past an allocation's
+    (aligned) start."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                      device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_kernels(dev):
     from vslam_tpu_torch import synthetic
-    from vslam_tpu_torch.ops import cuda_hamming, describe, hamming
+    from vslam_tpu_torch.ops import cuda_hamming, hamming
 
     rng = np.random.RandomState(0)
     report = {}
@@ -202,47 +285,88 @@ def phase_kernels(dev):
         if not bool(args[3].any()):  # no candidate: the 256 init, arg 0
             check(int(want[0].min()) == 256 and int(want[2].max()) == 0,
                   f"hamming_top2 without candidates at {label}")
-    shifted = torch.empty(a.numel() + 1, dtype=torch.uint8, device=dev)
-    shifted = shifted[1:].view(a.shape)
-    try:
-        cuda_hamming.hamming_top2(shifted, b, va, vb)
-    except ValueError:
-        pass
-    else:
-        check(False, "hamming_top2 accepted a misaligned input")
+    refuses(lambda: cuda_hamming.hamming_top2(misaligned(a), b, va, vb),
+            "hamming_top2")
     main = hamming_inputs(rng, 1500, 1500, dev, 0.95, True)
-    report["hamming_top2"] = dict(max_abs_err=err, **timings(
-        cuda_hamming.hamming_top2, cuda_hamming.hamming_top2,
-        hamming.hamming_top2_plain, main, main, "hamming_top2"))
+    bound_ms, bound_by = hamming_bound(*main)
+    report["hamming_top2"] = dict(
+        max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, **timings(cuda_hamming.hamming_top2,
+                                   hamming.hamming_top2_plain, main,
+                                   "hamming_top2"))
 
     # ---- K1: landmark top-2 ----
+    # main path (twice); ragged; P=0; all-invalid landmarks, all-invalid
+    # banks; the kernel's edges: N=1, P of 1, under and over one
+    # 32-landmark gate step, P past one and two 2048-landmark staged
+    # chunks; bank widths 1, 3 and 8 (two passes of four slots), and 0
     cases = [(1500, 2048, 4, 0.9, 0.7), (1500, 2048, 4, 1.0, 1.0),
              (100, 300, 4, 0.9, 0.8), (129, 513, 3, 0.5, 0.5),
              (7, 0, 4, 0.9, 0.7), (64, 256, 4, 0.0, 0.7),
-             (64, 256, 4, 0.9, 0.0)]
+             (64, 256, 4, 0.9, 0.0), (1, 300, 4, 0.9, 0.7),
+             (50, 1, 4, 1.0, 1.0), (50, 31, 4, 0.9, 0.7),
+             (50, 33, 4, 0.9, 0.7), (300, 2049, 4, 0.9, 0.7),
+             (200, 4100, 4, 0.9, 0.7), (80, 300, 1, 0.9, 0.7),
+             (80, 300, 8, 0.9, 0.7), (80, 300, 0, 0.9, 0.7)]
+    inputs = [(f"N={n} P={p} B={nb}",
+               landmark_inputs(rng, n, p, nb, dev, lf, bf))
+              for n, p, nb, lf, bf in cases]
+    # every landmark inside every keypoint's gate, and none inside any
+    every = list(landmark_inputs(rng, 64, 700, 4, dev))
+    every[2] = torch.as_tensor(100 + rng.rand(64, 2) * 5, dtype=torch.float32,
+                               device=dev)
+    every[5] = torch.as_tensor(100 + rng.rand(700, 2) * 5,
+                               dtype=torch.float32, device=dev)
+    none = list(landmark_inputs(rng, 64, 700, 4, dev))
+    none[5] = none[5] + 1000.0
+    inputs += [("every landmark gated", tuple(every)),
+               ("no landmark gated", tuple(none))]
+    for case in synthetic.LANDMARK_TIE_CASES:
+        data = synthetic.landmark_ties(case)
+        inputs.append((case, tuple(torch.as_tensor(x, device=dev)
+                                   for x in data[:7]) + (data[7],)))
+    kp, kv, kxy, bank, bv, lxy, lv, r = inputs[2][1]
+    inputs.append(("strided", (
+        kp.t().contiguous().t(), kv, torch.stack([kxy, kxy], 1)[:, 0],
+        torch.stack([bank, bank], 2)[:, :, 0], bv,
+        torch.stack([lxy, lxy], 1)[:, 0], lv, r)))
     err = 0
-    for n, p, nb, lf, bf in cases:
-        args = landmark_inputs(rng, n, p, nb, dev, lf, bf)
-        got = cuda_hamming.landmark_top2(*args)
+    for label, args in inputs:
         want = hamming.landmark_top2_plain(*args)
-        e = max_abs_err(got, want)
+        e = max_abs_err(cuda_hamming.landmark_top2(*args), want)
         check(e == 0, f"landmark_top2 differs from its plain version at "
-                      f"N={n} P={p} B={nb} (max abs err {e})")
+                      f"{label} (max abs err {e})")
         err = max(err, e)
+    refuses(lambda: cuda_hamming.landmark_top2(
+        misaligned(kp), kv, kxy, bank, bv, lxy, lv, r), "landmark_top2")
+    refuses(lambda: cuda_hamming.landmark_top2(
+        kp, kv, kxy, bank, bv, misaligned(lxy), lv, r), "landmark_top2")
     main = landmark_inputs(rng, 1500, 2048, 4, dev)
-    packed = (describe.pack_bits(main[0]), *main[1:3],
-              describe.pack_bits(main[3]), *main[4:])
-    report["landmark_top2"] = dict(max_abs_err=err, **timings(
-        cuda_hamming.landmark_top2, cuda_hamming.landmark_top2_packed,
-        hamming.landmark_top2_plain, main, packed, "landmark_top2"))
+    bound_ms, bound_by, per_kp, most = landmark_bound(*main)
+    report["landmark_top2"] = dict(
+        max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, gated_per_keypoint=per_kp, gated_most=most,
+        **timings(cuda_hamming.landmark_top2, hamming.landmark_top2_plain,
+                  main, "landmark_top2"))
     torch.cuda.synchronize()
     for name, r in report.items():
+        check(r["device_ops_per_call"] == 1
+              and r["kernel_only_ms"] == r["ms"],
+              f"{name} ran {r['device_ops_per_call']} device operations per "
+              f"call, not its one kernel")
         print(f"kernel {name}: exact vs plain in every case; device "
-              f"{r['ms']:.4f} ms per call as the main path calls it, "
+              f"{r['ms']:.4f} ms per call as the main path calls it "
+              f"({r['device_ops_per_call']} device operation, "
+              f"{r['device_events_seen']} events seen in 20 calls), "
               f"{r['kernel_only_ms']:.4f} ms kernel alone (plain "
               f"{r['plain_ms']:.4f} ms); per call with host "
-              f"{r['call_ms']:.4f} ms (plain {r['plain_call_ms']:.4f} ms)",
+              f"{r['call_ms']:.4f} ms (plain {r['plain_call_ms']:.4f} ms); "
+              f"bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}",
               flush=True)
+    r = report["landmark_top2"]
+    print(f"landmark_top2 at the main-path inputs: "
+          f"{r['gated_per_keypoint']:.2f} gated landmarks per valid "
+          f"keypoint, {r['gated_most']} at most", flush=True)
     return report
 
 

@@ -66,7 +66,7 @@ def test_solve_ba_schur_matches_jax(seed, cam, pad):
     pj, xj, sj = jba.solve_ba_schur(
         jba.BAProblem(**{k: jnp.asarray(v) for k, v in arrays.items()}),
         cam_name=cam, huber=1.0, max_iters=30)
-    prob = interop.from_arrays(tba.BAProblem, arrays)
+    prob = interop.from_arrays(tba.BAProblem, arrays, "cpu")
     pt, xt, st = tba.solve_ba_schur(prob, cam_name=cam, huber=1.0,
                                     max_iters=30)
     np.testing.assert_allclose(float(st["initial_cost"]),
@@ -83,7 +83,7 @@ def test_normal_equations_match_jax(cam):
     arrays = golden_problem(4, cam, pad=3)
     jp = jba.BAProblem(**{k: jnp.asarray(v) for k, v in arrays.items()})
     out_j = jba._normal_equations(cam, jp, jp.poses, jp.points, 1.0)
-    tp = interop.from_arrays(tba.BAProblem, arrays)
+    tp = interop.from_arrays(tba.BAProblem, arrays, "cpu")
     out_t = tba._normal_equations(cam, tp, tp.poses, tp.points, 1.0)
     for name, a, b in zip(["Hcc", "Hpp", "U", "bc", "bp", "r"], out_t,
                           out_j):
@@ -98,7 +98,7 @@ def test_schur_solve_matches_dense_solve():
     """The Schur-eliminated step equals the full damped normal-equation
     solve (float64 reference on the same blocks)."""
     arrays = golden_problem(5, "pinhole")
-    tp = interop.from_arrays(tba.BAProblem, arrays)
+    tp = interop.from_arrays(tba.BAProblem, arrays, "cpu")
     Hcc, Hpp, U, bc, bp, _ = tba._normal_equations("pinhole", tp, tp.poses,
                                                    tp.points, 1.0)
     lam = torch.tensor(1e-3)

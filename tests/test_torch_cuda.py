@@ -7,8 +7,9 @@ without it:
 Each hand-written kernel must equal its plain PyTorch version exactly (the
 outputs are integers), at the main path's shapes, at ragged, chunk-edge
 and all-invalid shapes and on tie-heavy inputs
-(``synthetic.descriptor_ties``, which the CPU parity tests share), and
-the dispatchers must route CUDA tensors through the kernels.
+(``synthetic.descriptor_ties`` and ``synthetic.landmark_ties``, which the
+CPU parity tests share), take strided inputs and refuse misaligned ones,
+and the dispatchers must route CUDA tensors through the kernels.
 """
 
 import numpy as np
@@ -43,9 +44,10 @@ def top2_inputs(rng, n, m, dev, valid=0.9, valid_b=None):
 
 def landmark_inputs(rng, n, p, nb, dev, lm_valid=0.9, bank_valid=0.7):
     kp = rng.randint(0, 2, (n, 256)).astype(np.uint8)
-    src = rng.randint(0, max(n, 1), (p, nb))
+    src = rng.randint(0, max(n, 1), (p, max(nb, 1)))
     flip = rng.rand(p, nb, 256) < 0.08
-    bank = np.where(flip, 1 - kp[src], kp[src]).astype(np.uint8)
+    near = kp[src[:, :nb]]
+    bank = np.where(flip, 1 - near, near).astype(np.uint8)
     kxy = (rng.rand(n, 2) * [752, 480]).astype(np.float32)
     lxy = (kxy[src[:, 0]] + rng.normal(0, 15, (p, 2))).astype(np.float32)
     return tuple(torch.as_tensor(x, device=dev) for x in
@@ -103,16 +105,79 @@ def test_hamming_top2_strided_and_misaligned_input(dev):
         cuda_hamming.hamming_top2(shifted, b, va, vb)
 
 
+# main path; ragged; P=0; all-invalid landmarks, all-invalid banks; the
+# kernel's edges: N=1, P of 1, under and over one 32-landmark gate step,
+# P past one and two 2048-landmark staged chunks; B=1, 3 and 8 (two passes
+# of four slots), and B=0 (an empty bank tensor: every hit at 256)
 @pytest.mark.parametrize("n,p,nb,lm_valid,bank_valid", [
     (1500, 2048, 4, 0.9, 0.7), (100, 300, 4, 0.9, 0.8),
     (129, 513, 3, 0.5, 0.5), (7, 0, 4, 0.9, 0.7), (64, 256, 4, 0.0, 0.7),
-    (64, 256, 4, 0.9, 0.0)])
+    (64, 256, 4, 0.9, 0.0), (1, 300, 4, 0.9, 0.7), (50, 1, 4, 1.0, 1.0),
+    (50, 31, 4, 0.9, 0.7), (50, 33, 4, 0.9, 0.7), (300, 2049, 4, 0.9, 0.7),
+    (200, 4100, 4, 0.9, 0.7), (80, 300, 1, 0.9, 0.7),
+    (80, 300, 8, 0.9, 0.7), (80, 300, 0, 0.9, 0.7)])
 def test_landmark_top2_kernel_equals_plain(dev, n, p, nb, lm_valid,
                                            bank_valid):
-    args = landmark_inputs(np.random.RandomState(n + p), n, p, nb, dev,
+    args = landmark_inputs(np.random.RandomState(n + p + nb), n, p, nb, dev,
                            lm_valid, bank_valid)
     assert_equal(cuda_hamming.landmark_top2(*args),
                  hamming.landmark_top2_plain(*args))
+
+
+@pytest.mark.parametrize("gate", ["all", "none"])
+def test_landmark_top2_kernel_gate_extremes(dev, gate):
+    """Every landmark inside every keypoint's gate (each warp takes every
+    landmark as a hit), and none inside any."""
+    rng = np.random.RandomState(5)
+    args = list(landmark_inputs(rng, 64, 700, 4, dev))
+    if gate == "all":
+        args[2] = torch.as_tensor(100 + rng.rand(64, 2) * 5, device=dev,
+                                  dtype=torch.float32)
+        args[5] = torch.as_tensor(100 + rng.rand(700, 2) * 5, device=dev,
+                                  dtype=torch.float32)
+    else:
+        args[5] = args[5] + 1000.0
+    want = hamming.landmark_top2_plain(*args)
+    assert_equal(cuda_hamming.landmark_top2(*args), want)
+    assert bool(want[3].any()) == (gate == "all")
+
+
+@pytest.mark.parametrize("case", synthetic.LANDMARK_TIE_CASES)
+def test_landmark_top2_kernel_ties(dev, case):
+    data = synthetic.landmark_ties(case)
+    args = tuple(torch.as_tensor(x, device=dev) for x in data[:7]) + \
+        (data[7],)
+    want = hamming.landmark_top2_plain(*args)
+    assert_equal(cuda_hamming.landmark_top2(*args), want)
+    best, second, _, any_c = want
+    if case == "at_256":
+        assert bool((any_c & (best == 256)).any())
+    else:
+        assert bool(((best == second) & (best < 256)).any())
+
+
+def test_landmark_top2_strided_and_misaligned_input(dev):
+    """Strided inputs are copied and give the plain version's result; a
+    contiguous descriptor tensor off 16-byte alignment, or an xy tensor
+    off 8-byte alignment, raises."""
+    args = landmark_inputs(np.random.RandomState(1), 48, 300, 4, dev)
+    kp, kv, kxy, bank, bv, lxy, lv, r = args
+    want = hamming.landmark_top2_plain(*args)
+    strided = (kp.t().contiguous().t(), kv, torch.stack([kxy, kxy], 1)[:, 0],
+               torch.stack([bank, bank], 2)[:, :, 0], bv,
+               torch.stack([lxy, lxy], 1)[:, 0], lv, r)
+    assert not any(strided[i].is_contiguous() for i in (0, 2, 3, 5))
+    assert_equal(cuda_hamming.landmark_top2(*strided), want)
+    shifted = torch.empty(kp.numel() + 1, dtype=torch.uint8, device=dev)
+    shifted = shifted[1:].view(kp.shape)
+    shifted.copy_(kp)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_hamming.landmark_top2(shifted, *args[1:])
+    shifted_xy = torch.empty(lxy.numel() + 1, dtype=torch.float32,
+                             device=dev)[1:].view(lxy.shape)
+    shifted_xy.copy_(lxy)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_hamming.landmark_top2(kp, kv, kxy, bank, bv, shifted_xy, lv, r)
 
 
 def test_dispatch_launches_kernels(dev):

@@ -4,9 +4,10 @@ The plain PyTorch versions of the two kernels (``landmark_top2_plain``,
 ``hamming_top2_plain``) are held against the Pallas kernels run with
 ``interpret=True`` (as tests/test_pallas_hamming.py runs them) and against
 the JAX CPU matchers. Distances are exact integers, so every comparison is
-exact. The descriptor top-2's argmin is held on tied rows too (the
-lowest-index rule), on tie-heavy inputs shared with the card tests; the
-landmark top-2's wherever the best distance is strict.
+exact. Both argmins are held on tied rows too (the lowest-index rule),
+against the JAX CPU argmin on every row and against Pallas on every valid
+row with a best distance under 256, and on tie-heavy inputs shared with
+the card tests (``synthetic.descriptor_ties``, ``synthetic.landmark_ties``).
 
 The one documented split: ``any_candidate``. The JAX CPU path (which the
 JAX tests pin) reports "some valid landmark inside the 2D gate"; the
@@ -55,8 +56,53 @@ def landmark_inputs(n, p, bank, seed, bank_valid=0.8, lm_valid=0.9):
             lxy, rng.rand(p) < lm_valid)
 
 
-def strict_rows(best, second, valid):
-    return (best < second) & valid & (best < 256)
+def jax_cpu_landmark_top2(kp, kv, kxy, banks, bv, lxy, lv, r):
+    """The JAX CPU path's guided landmark stats, as
+    vslam_tpu/ops/hamming.py:148-162 computes them inside
+    ``match_landmarks``: (best, second, argmin, any_candidate)."""
+    p, b, _ = banks.shape
+    flat_valid = bv.reshape(p * b) & np.repeat(lv, b)
+    d = jham.distance_matrix(jnp.asarray(kp),
+                             jnp.asarray(banks.reshape(p * b, 256)),
+                             jnp.asarray(kv), jnp.asarray(flat_valid))
+    d = d.reshape(d.shape[0], p, b).min(axis=-1)
+    diff = jnp.asarray(kxy)[:, None, :] - jnp.asarray(lxy)[None, :, :]
+    d2 = jnp.sum(diff * diff, axis=-1)
+    gate = (d2 < r * r) & jnp.asarray(lv)[None, :] & jnp.asarray(kv)[:, None]
+    d = jnp.where(gate, d, jham.PAD_DIST)
+    b1, b2 = jham._top2_min(d, axis=1)
+    return tuple(np.asarray(x) for x in (b1, b2, jnp.argmin(d, axis=1),
+                                         jnp.any(gate, axis=1)))
+
+
+def assert_landmark_top2_matches_jax(kp, kv, kxy, banks, bv, lxy, lv, r):
+    """landmark_top2_plain against the JAX CPU path on every row (best,
+    second, arg, any_candidate) and against the Pallas kernel; returns
+    the port's (best, second, arg, any_candidate)."""
+    b1, b2, arg, any_c = (x.numpy() for x in tham.landmark_top2_plain(
+        *(t(x) for x in (kp, kv, kxy, banks, bv, lxy, lv)), r))
+    assert b1.dtype == np.int32 and arg.dtype == np.int32
+    cb1, cb2, carg, cany = jax_cpu_landmark_top2(kp, kv, kxy, banks, bv,
+                                                 lxy, lv, r)
+    np.testing.assert_array_equal(b1, cb1)
+    np.testing.assert_array_equal(b2, cb2)
+    np.testing.assert_array_equal(arg, carg)
+    np.testing.assert_array_equal(any_c, cany)
+    pb1, pb2, parg, pany = (np.asarray(x) for x in jpal.landmark_top2(
+        *(jnp.asarray(x) for x in (kp, kv, kxy, banks, bv, lxy, lv)), r,
+        interpret=True))
+    np.testing.assert_array_equal(b1, pb1)
+    np.testing.assert_array_equal(b2, pb2)
+    # The Pallas path pads out-of-gate and empty-bank landmarks far above
+    # 256, so where best is 256 its arg is a gated landmark's index where
+    # the CPU path (and the port) give 0; on invalid rows its arg is not
+    # reset. Those rows are held to the CPU path only.
+    rows = kv & (b1 < 256)
+    np.testing.assert_array_equal(arg[rows], parg[rows])
+    # any_candidate: the port (CPU-path semantics) may only ADD rows whose
+    # gated landmarks all have empty banks
+    assert not (pany & ~any_c).any()
+    return b1, b2, arg, any_c
 
 
 def assert_top2_matches_jax(a, b, va, vb):
@@ -122,25 +168,49 @@ def test_hamming_top2_all_invalid_columns():
 @pytest.mark.parametrize("n,p,bank", [(100, 300, 4), (128, 512, 4),
                                       (130, 600, 3), (7, 1, 4)])
 def test_landmark_top2_matches_pallas(n, p, bank):
-    kp, kv, kxy, banks, bv, lxy, lv = landmark_inputs(n, p, bank, n + p)
+    args = landmark_inputs(n, p, bank, n + p)
     r = 40.0
-    jb1, jb2, jarg, jany = (np.asarray(x) for x in jpal.landmark_top2(
-        *(jnp.asarray(x) for x in (kp, kv, kxy, banks, bv, lxy, lv)), r,
-        interpret=True))
-    b1, b2, arg, any_c = (x.numpy() for x in tham.landmark_top2_plain(
-        *(t(x) for x in (kp, kv, kxy, banks, bv, lxy, lv)), r))
-    np.testing.assert_array_equal(b1, jb1)
-    np.testing.assert_array_equal(b2, jb2)
-    s = strict_rows(b1, b2, kv)
-    np.testing.assert_array_equal(arg[s], jarg[s])
-    # any_candidate: the port (CPU-path semantics) may only ADD rows whose
-    # gated landmarks all have empty banks
-    assert not (jany & ~any_c).any()
+    assert_landmark_top2_matches_jax(*args, r)
     full = landmark_inputs(n, p, bank, n + p, bank_valid=1.0)
     fj = np.asarray(jpal.landmark_top2(
         *(jnp.asarray(x) for x in full), r, interpret=True)[3])
     ft = tham.landmark_top2_plain(*(t(x) for x in full), r)[3].numpy()
     np.testing.assert_array_equal(ft, fj)
+
+
+@pytest.mark.parametrize("case", synthetic.LANDMARK_TIE_CASES)
+def test_landmark_top2_ties_match_jax(case):
+    kp, kv, kxy, banks, bv, lxy, lv, r = synthetic.landmark_ties(case)
+    b1, b2, arg, any_c = assert_landmark_top2_matches_jax(
+        kp, kv, kxy, banks, bv, lxy, lv, r)
+    # the rows that ties and the 256 rule decide are really there
+    tied = kv & (b1 == b2) & (b1 < 256)
+    if case == "at_256":
+        rows = kv & any_c
+        assert rows.sum() > 10
+        assert (b1[rows] == 256).all() and (arg[rows] == 0).all()
+    else:
+        assert tied.any()
+    if case == "far_copies":
+        first = np.arange(24)
+        first = np.where(first % 3 == 0, first + 37, first)
+        rows = kv[:24]
+        np.testing.assert_array_equal(arg[:24][rows], first[rows])
+    if case == "slot_ties":
+        rows = kv & (np.arange(len(kv)) % 4 != 1)
+        np.testing.assert_array_equal(arg[rows], np.arange(len(kv))[rows])
+    # the whole matcher: distance-0 ties pass the ratio test and reach the
+    # map, so the accepted index is the lowest one
+    jm, jok, jany = (np.asarray(x) for x in jham.match_landmarks(
+        *(jnp.asarray(x) for x in (kp, kv, banks, bv, kxy, lxy, lv)),
+        max_dist_2d=r))
+    tm, tok, tany = (x.numpy() for x in tham.match_landmarks(
+        *(t(x) for x in (kp, kv, banks, bv, kxy, lxy, lv)), max_dist_2d=r))
+    np.testing.assert_array_equal(tok, jok)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tany, jany)
+    if case == "far_copies":
+        assert (tok & (b1 == 0) & (b2 == 0)).any()
 
 
 def test_landmark_top2_all_invalid():
@@ -209,12 +279,14 @@ def test_distance_matrix_and_packing_match_jax():
     np.testing.assert_array_equal(tdesc.unpack_bits(packed).numpy(), a)
 
 
-@pytest.mark.parametrize("layout", ["aligned", "strided", "misaligned"])
+@pytest.mark.parametrize("layout",
+                         ["aligned", "strided", "misaligned", "empty"])
 def test_cuda_wrapper_input_checks(layout):
-    """The descriptor top-2 kernel reads its inputs with 16-byte loads:
-    contiguous and aligned pass as they are, strided ones are copied, and
-    contiguous misaligned ones raise (checked on CPU tensors; the launch
-    itself needs the card)."""
+    """The kernels read descriptors with 16-byte loads: contiguous and
+    aligned inputs pass as they are, strided ones are copied, contiguous
+    misaligned ones raise, and an empty one passes wherever it starts
+    (nothing is read). Checked on CPU tensors; the launch itself needs the
+    card."""
     from vslam_tpu_torch.ops import cuda_hamming
 
     base = torch.zeros(64 * 256 + 16, dtype=torch.uint8)
@@ -224,8 +296,10 @@ def test_cuda_wrapper_input_checks(layout):
         x = x.t().contiguous().t()
     elif layout == "misaligned":
         x = base[offset + 1:offset + 1 + 64 * 256].view(64, 256)
-    args = (x, "bits", torch.uint8, (64, 256), torch.device("cpu"))
-    if layout == "aligned":
+    elif layout == "empty":
+        x = base[offset + 1:offset + 1].view(0, 256)
+    args = (x, "bits", torch.uint8, tuple(x.shape), torch.device("cpu"))
+    if layout in ("aligned", "empty"):
         assert cuda_hamming._check(*args, align=16) is x
     elif layout == "strided":
         got = cuda_hamming._check(*args, align=16)
@@ -234,6 +308,24 @@ def test_cuda_wrapper_input_checks(layout):
     else:
         with pytest.raises(ValueError, match="aligned"):
             cuda_hamming._check(*args, align=16)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_cuda_wrapper_xy_alignment(offset):
+    """The landmark top-2 kernel reads (x, y) pairs with 8-byte loads: a
+    contiguous float32 [N, 2] tensor passes on an 8-byte boundary and
+    raises off it (checked on CPU tensors; the launch needs the card)."""
+    from vslam_tpu_torch.ops import cuda_hamming
+
+    base = torch.zeros(2 * 64 + 8, dtype=torch.float32)
+    start = (-base.data_ptr()) % 16 // 4 + offset
+    x = base[start:start + 2 * 64].view(64, 2)
+    args = (x, "xy", torch.float32, (64, 2), torch.device("cpu"))
+    if offset % 2 == 0:
+        assert cuda_hamming._check(*args, align=8) is x
+    else:
+        with pytest.raises(ValueError, match="aligned"):
+            cuda_hamming._check(*args, align=8)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -43,7 +43,7 @@ def seq():
 
 @pytest.fixture(scope="module")
 def port_run(seq):
-    vo = StreamingVO(seq.calib, small_config(), max_frames=64)
+    vo = StreamingVO(seq.calib, small_config(), max_frames=64, device="cpu")
     vo.run(seq.images)
     return vo
 
@@ -88,8 +88,22 @@ def test_port_full_trajectory(port_run, seq):
     assert rmse < 0.10, rmse
 
 
+@pytest.mark.parametrize("entry", ["StreamingVO", "from_arrays"])
+def test_entry_points_default_to_the_card(seq, entry):
+    """Left without a device, the port's entry points take the card and
+    raise where there is none: no silent fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "StreamingVO":
+            StreamingVO(seq.calib, small_config(), max_frames=8)
+        else:
+            interop.from_arrays(Features, {"valid": np.ones(4, bool)})
+
+
 def test_port_reset_reproducible(seq):
-    vo = StreamingVO(seq.calib, small_config(), max_frames=32)
+    vo = StreamingVO(seq.calib, small_config(), max_frames=32,
+                     device="cpu")
     vo.run(seq.images[:6])
     t1 = vo.results()["trajectory"]
     vo.reset()
@@ -104,7 +118,7 @@ def test_port_culling_under_pressure(seq):
     cfg.max_landmarks = 512
     cfg.lm_cull_pressure = 0.5
     cfg.lm_cull_min_obs = 3
-    vo = StreamingVO(seq.calib, cfg, max_frames=64)
+    vo = StreamingVO(seq.calib, cfg, max_frames=64, device="cpu")
     vo.run(seq.images)
     res = vo.results()
     assert res["is_keyframe"].sum() >= 4
@@ -124,8 +138,8 @@ def jax_state(jax_run):
 
 def port_state(jax_run):
     kf, lm = jax_state(jax_run)
-    return (interop.from_arrays(KeyframeState, kf._asdict()),
-            interop.from_arrays(LandmarkState, lm._asdict()))
+    return (interop.from_arrays(KeyframeState, kf._asdict(), "cpu"),
+            interop.from_arrays(LandmarkState, lm._asdict(), "cpu"))
 
 
 def assert_same(port_obj, jax_obj, atol=1e-5, rtol=None):
@@ -146,7 +160,7 @@ def assert_same(port_obj, jax_obj, atol=1e-5, rtol=None):
 
 def test_interop_roundtrip(jax_run):
     st = jax_run.state
-    port = interop.from_arrays(StreamState, st._asdict())
+    port = interop.from_arrays(StreamState, st._asdict(), "cpu")
     assert port.frame == int(st.frame)
     assert port.kf.desc.dtype == torch.uint8 and port.lm.valid.dtype == \
         torch.bool
@@ -182,8 +196,8 @@ def tt(x):
 def test_stereo_match_and_insert_keyframe_match_jax(jax_run, seq):
     st = jax_run.state
     res, feats_r, stereo_j, stereo_inl = keyframe_inputs(jax_run, seq)
-    fl = interop.from_arrays(Features, res.feats)
-    fr = interop.from_arrays(Features, feats_r)
+    fl = interop.from_arrays(Features, res.feats, "cpu")
+    fr = interop.from_arrays(Features, feats_r, "cpu")
     sj, sinl = tkf.stereo_match(fl, fr, tt(st.T_0_1), tt(st.intr0),
                                 tt(st.intr1), cam_name="pinhole")
     np.testing.assert_array_equal(sinl.numpy(), np.asarray(stereo_inl))
@@ -285,8 +299,8 @@ def test_run_window_ba_matches_jax(jax_run):
     noise = rng.normal(0, 2e-3, np.asarray(kf_j.pose_l).shape)
     noise[:, 3:] = 0.0
     kf_j = kf_j._replace(pose_l=kf_j.pose_l + noise.astype(np.float32))
-    kf_t, lm_t = (interop.from_arrays(KeyframeState, kf_j._asdict()),
-                  interop.from_arrays(LandmarkState, lm_j._asdict()))
+    kf_t, lm_t = (interop.from_arrays(KeyframeState, kf_j._asdict(), "cpu"),
+                  interop.from_arrays(LandmarkState, lm_j._asdict(), "cpu"))
     kw = dict(cam_name="pinhole", max_iters=5, W2=cfg.window_cams // 2,
               Lw=cfg.window_points, O=cfg.window_obs)
     kj, lj, sj = jbaw.run_window_ba(kf_j, lm_j, st.intr0, st.intr1, **kw)
@@ -316,7 +330,7 @@ def test_port_lost_frames_and_options_match_jax(seq):
     blank = np.zeros_like(frames[0][0])
     for i in (6, 7):
         frames[i] = (blank, blank)
-    port = StreamingVO(seq.calib, cfg, max_frames=32)
+    port = StreamingVO(seq.calib, cfg, max_frames=32, device="cpu")
     port.run(frames)
     ref = JaxStreamingVO(seq.calib, cfg, max_frames=32)
     ref.run(frames, sync_every=0)

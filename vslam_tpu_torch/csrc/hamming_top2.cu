@@ -22,17 +22,48 @@
 // axis. Here blocks run in parallel, so each design says where the
 // candidate axis goes.
 //
-// landmark_top2_kernel. Descriptors arrive packed (32 bytes, the layout of
-// describe.pack_bits) and are read as 8 x uint32; a distance is
-// sum(__popc(a ^ b)) over the 8 words. One thread owns one query row and
-// keeps (best, second, arg) in registers; candidate tiles (bits, validity,
-// projected xy) are staged through shared memory and swept in increasing
-// index order with a strict '<' update, which gives the lowest-index tie
-// rule. The 2D gate is tested before any Hamming work, so landmarks
-// outside the radius cost one compare. At N=1500 keypoints x P=2048
-// landmarks x B=4 slots the inputs stay in L2 and one thread per row
-// fills ceil(1500/128) = 12 blocks on 132 SMs: latency- and
-// occupancy-bound, but the gate skips most of the work.
+// landmark_top2_kernel. The 2D gate (20 px on a 752 x 480 image at the
+// main path's settings) rules out ~99.7% of the N x P pairs before any
+// Hamming work, so the design gates first and spends the card on the few
+// pairs left.
+//   - Grid: one warp per keypoint row, 16 rows per block: 1500 warps in
+//     94 blocks at N=1500. With 120 registers a thread (the next batch's
+//     bank bytes are held while this one is summed) one such block fits
+//     an SM; more, smaller blocks or several warps per row ran slower.
+//   - Staging: the block stages the landmarks' xy in shared memory, 2048
+//     at a time (16 KB), every load made before any store; an invalid
+//     landmark, or padding to a whole gate round, is NaN, so the one
+//     compare also tests validity.
+//   - Gate: lane l tests landmark 32 k + l at step k, eight steps at a
+//     time with no branch and no vote, in the plain version's rounding
+//     (__fmul_rn / __fadd_rn: no fused multiply-add), into bit k of its
+//     own 64-bit mask; an OR across the warp then gives the steps with a
+//     hit, and a ballot per such step its hits.
+//   - Hamming work only for hits, four at a time, in increasing index:
+//     each group of 8 lanes takes one hit, and lane l reads bytes
+//     32 (l % 8) .. +32 of each of its bank slots (two 16-byte __ldg per
+//     slot). The distance needs no packing: the XOR of two words of {0,1}
+//     bytes has its differences in bit 0 of each byte, so eight XORs
+//     shifted by 0..7 add up without carries to one word for __popc.
+//     Shuffles sum each slot over the group's lanes (two slots per 32-bit
+//     sum), an invalid slot counts 256, the min over slots is the
+//     distance. The next batch's bank bytes are loaded before this batch
+//     is summed, so their L2 round trip overlaps its work.
+//   - Exact merge in any order: each group keeps its own top-2 on the
+//     key (d << 23) | j, as hamming_top2_kernel does, so the lowest index
+//     wins ties and the second-best is the multiset one; the four groups
+//     merge by shuffles at the end. any_candidate is "some hit", whatever
+//     the bank validity. P is limited to 2^23 by the key.
+//   The kernel takes the {0,1} descriptor bytes the main path holds: one
+//   launch per call, no packing pass.
+//   What bounds it: the main path hands it 2,540,776 bytes (keypoint and
+//   bank bytes, validities, xy, outputs), ~0.76 us at 3.35 TB/s, fewer
+//   where banks are empty or no keypoint gates a landmark, and ~10 k
+//   gated pairs. In practice the launch and three phases in a row bound
+//   it: the staging round trip and barrier, the N x P gate tests at the
+//   instruction rate, and the hits of the rows that have the most (~20,
+//   ~7 on average at the main path's density), one L2 round trip per
+//   batch of four.
 //
 // hamming_top2_kernel. No gate skips anything, so the candidate axis is
 // spread over the card and the distances come from the tensor cores.
@@ -78,97 +109,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // query rows per block
-constexpr int kTile = 128;     // candidates staged per shared-memory tile
 constexpr int kWords = 8;      // 256 bits = 8 x uint32
 constexpr int kMaxBank = 8;    // landmark bank slots supported
 constexpr int kPad = 256;      // "no candidate" distance
-
-__device__ __forceinline__ int hamming256(const uint32_t (&q)[kWords],
-                                          const uint32_t* c) {
-  int d = 0;
-#pragma unroll
-  for (int w = 0; w < kWords; ++w) d += __popc(q[w] ^ c[w]);
-  return d;
-}
-
-__device__ __forceinline__ void top2_update(int d, int j, int& best,
-                                            int& second, int& arg) {
-  if (d < best) {
-    second = best;
-    best = d;
-    arg = j;
-  } else if (d < second) {
-    second = d;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-landmark_top2_kernel(const uint32_t* __restrict__ kp,
-                     const bool* __restrict__ kp_valid,
-                     const float* __restrict__ kp_xy,
-                     const uint32_t* __restrict__ bank,
-                     const bool* __restrict__ bank_valid,
-                     const float* __restrict__ lm_xy,
-                     const bool* __restrict__ lm_valid, float r2, int n,
-                     int p, int nb, int* __restrict__ best_out,
-                     int* __restrict__ second_out, int* __restrict__ arg_out,
-                     bool* __restrict__ any_out) {
-  __shared__ uint32_t s_bits[kTile * kMaxBank * kWords];
-  __shared__ float s_xy[kTile * 2];
-  __shared__ bool s_bank_valid[kTile * kMaxBank];
-  __shared__ bool s_lm_valid[kTile];
-
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = row < n && kp_valid[row];
-  uint32_t q[kWords];
-#pragma unroll
-  for (int w = 0; w < kWords; ++w)
-    q[w] = active ? kp[static_cast<size_t>(row) * kWords + w] : 0u;
-  const float kx = active ? kp_xy[2 * row] : 0.f;
-  const float ky = active ? kp_xy[2 * row + 1] : 0.f;
-
-  int best = kPad, second = kPad, arg = 0;
-  bool any = false;
-  for (int base = 0; base < p; base += kTile) {
-    const int cnt = min(kTile, p - base);
-    const uint32_t* tile = bank + static_cast<size_t>(base) * nb * kWords;
-    for (int i = threadIdx.x; i < cnt * nb * kWords; i += kThreads)
-      s_bits[i] = tile[i];
-    for (int i = threadIdx.x; i < cnt * nb; i += kThreads)
-      s_bank_valid[i] = bank_valid[static_cast<size_t>(base) * nb + i];
-    for (int i = threadIdx.x; i < cnt; i += kThreads) {
-      s_lm_valid[i] = lm_valid[base + i];
-      s_xy[2 * i] = lm_xy[2 * (base + i)];
-      s_xy[2 * i + 1] = lm_xy[2 * (base + i) + 1];
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < cnt; ++j) {
-        if (!s_lm_valid[j]) continue;
-        // the gate in the plain version's rounding: no fused multiply-add
-        const float dx = __fsub_rn(kx, s_xy[2 * j]);
-        const float dy = __fsub_rn(ky, s_xy[2 * j + 1]);
-        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        if (!(d2 < r2)) continue;
-        any = true;
-        int dmin = kPad;
-        for (int s = 0; s < nb; ++s) {
-          if (s_bank_valid[j * nb + s])
-            dmin = min(dmin, hamming256(q, s_bits + (j * nb + s) * kWords));
-        }
-        top2_update(dmin, base + j, best, second, arg);
-      }
-    }
-    __syncthreads();
-  }
-  if (row < n) {
-    best_out[row] = best;
-    second_out[row] = second;
-    arg_out[row] = arg;
-    any_out[row] = any;
-  }
-}
+constexpr unsigned kFull = 0xffffffffu;
 
 // ---- hamming_top2_kernel ------------------------------------------------
 
@@ -387,6 +331,227 @@ hamming_top2_kernel(const uint8_t* __restrict__ a,
   }
 }
 
+// ---- landmark_top2_kernel -----------------------------------------------
+
+constexpr int kLmWarps = 16;      // keypoint rows per block, one per warp
+constexpr int kLmThreads = kLmWarps * 32;
+constexpr int kLmChunk = 2048;    // landmarks staged per chunk (16 KB)
+constexpr int kUnroll = 8;        // gate steps a warp takes at once
+constexpr int kLmPad = 32 * kUnroll;  // staged multiple: whole rounds
+constexpr int kHitLanes = 8;      // lanes per hit: 32 bytes of a slot each
+constexpr int kBatch = 32 / kHitLanes;  // hits a warp takes at once
+constexpr int kSlotsPerPass = 4;  // bank slots loaded at once
+static_assert(kLmChunk / 32 <= 64, "a lane keeps its gate bits in 64 bits");
+static_assert(kLmChunk % kLmPad == 0, "whole rounds per chunk");
+static_assert(kSlotsPerPass == 4, "pass_min sums slots in pairs");
+
+// Bytes 32 sub .. 32 sub + 31 of a 16-byte aligned {0,1} descriptor row.
+struct Bytes32 {
+  uint4 lo, hi;
+};
+
+__device__ __forceinline__ Bytes32 load32(const uint8_t* row, int sub) {
+  const uint4* src = reinterpret_cast<const uint4*>(row) + 2 * sub;
+  return {__ldg(src), __ldg(src + 1)};
+}
+
+// The number of differing bytes between two runs of 32 {0,1} bytes: the
+// XOR of each 32-bit word has its differences in bit 0 of its bytes, so
+// word i is shifted by i and the eight are added (no carries: each bit
+// position gets one word) before a single popcount.
+__device__ __forceinline__ int byte_distance(const Bytes32& a,
+                                             const Bytes32& b) {
+  const uint32_t d = (a.lo.x ^ b.lo.x) + ((a.lo.y ^ b.lo.y) << 1) +
+                     ((a.lo.z ^ b.lo.z) << 2) + ((a.lo.w ^ b.lo.w) << 3) +
+                     ((a.hi.x ^ b.hi.x) << 4) + ((a.hi.y ^ b.hi.y) << 5) +
+                     ((a.hi.z ^ b.hi.z) << 6) + ((a.hi.w ^ b.hi.w) << 7);
+  return __popc(d);
+}
+
+// Four slots (s0 .. s0 + 3) of landmark j's bank as one lane of a hit's
+// group reads them: bytes 32 sub .. +31 of each, and their validity. A
+// slot past nb reloads slot 0 and counts as invalid.
+struct BankPass {
+  Bytes32 v[kSlotsPerPass];
+  bool ok[kSlotsPerPass];
+};
+
+__device__ __forceinline__ BankPass load_pass(
+    const uint8_t* __restrict__ bank, const bool* __restrict__ bank_valid,
+    int j, int nb, int s0, int sub) {
+  BankPass b;
+  const size_t first = static_cast<size_t>(j) * nb;
+#pragma unroll
+  for (int s = 0; s < kSlotsPerPass; ++s) {
+    const bool in = s0 + s < nb;
+    const size_t slot = first + (in ? s0 + s : 0);
+    b.v[s] = load32(bank + slot * 256, sub);
+    b.ok[s] = in && bank_valid[slot];
+  }
+  return b;
+}
+
+// min(dmin, the distance from the keypoint (bytes 32 sub .. +31 of it in
+// kb) to each valid slot of the pass), summed over the group's 8 lanes
+// (lanes 8g .. 8g + 7), which all get the result; the whole warp calls it.
+__device__ __forceinline__ int pass_min(const BankPass& b, const Bytes32& kb,
+                                        int dmin) {
+  // two slots per 32-bit sum (16 bits each)
+  int h01 = byte_distance(kb, b.v[0]) | (byte_distance(kb, b.v[1]) << 16);
+  int h23 = byte_distance(kb, b.v[2]) | (byte_distance(kb, b.v[3]) << 16);
+#pragma unroll
+  for (int off = 1; off < kHitLanes; off <<= 1) {
+    h01 += __shfl_xor_sync(kFull, h01, off);
+    h23 += __shfl_xor_sync(kFull, h23, off);
+  }
+  const int h[kSlotsPerPass] = {h01 & 0xffff, h01 >> 16, h23 & 0xffff,
+                                h23 >> 16};
+#pragma unroll
+  for (int s = 0; s < kSlotsPerPass; ++s)
+    if (b.ok[s]) dmin = min(dmin, h[s]);
+  return dmin;
+}
+
+// kp [N, 256], bank [P, B, 256]: descriptors as {0,1} bytes, 16-byte
+// aligned; kp_xy [N], lm_xy [P]: (x, y) pairs, 8-byte aligned.
+__global__ void __launch_bounds__(kLmThreads)
+landmark_top2_kernel(const uint8_t* __restrict__ kp,
+                     const bool* __restrict__ kp_valid,
+                     const float2* __restrict__ kp_xy,
+                     const uint8_t* __restrict__ bank,
+                     const bool* __restrict__ bank_valid,
+                     const float2* __restrict__ lm_xy,
+                     const bool* __restrict__ lm_valid, float r2, int n,
+                     int p, int nb, int* __restrict__ best_out,
+                     int* __restrict__ second_out, int* __restrict__ arg_out,
+                     bool* __restrict__ any_out) {
+  __shared__ float2 s_xy[kLmChunk];  // NaN: invalid or padding
+  const int lane = threadIdx.x & 31;
+  const int group = lane / kHitLanes, sub = lane % kHitLanes;
+  const int row = blockIdx.x * kLmWarps + (threadIdx.x >> 5);
+  const bool active = row < n && kp_valid[row];  // the same for the warp
+  Bytes32 kb = {};
+  float2 kxy = make_float2(0.f, 0.f);
+  if (active) {
+    kb = load32(kp + static_cast<size_t>(row) * 256, sub);
+    kxy = kp_xy[row];
+  }
+  const float nan = __int_as_float(0x7fc00000);
+
+  // this group's running top-2 over its hits: key (d << 23) | j
+  uint32_t best = kNoKey;
+  int second = kPad;
+  bool any = false;
+  for (int base = 0; base < p; base += kLmChunk) {
+    const int cnt = min(kLmChunk, p - base);
+    const int padded = (cnt + kLmPad - 1) / kLmPad * kLmPad;
+    __syncthreads();  // the previous chunk is gated by every warp
+    // every load first (an index past cnt reloads landmark base), then
+    // the stores: the loads travel together
+    float2 xy[kLmChunk / kLmThreads];
+    bool ok[kLmChunk / kLmThreads];
+#pragma unroll
+    for (int k = 0; k < kLmChunk / kLmThreads; ++k) {
+      const int i = k * kLmThreads + threadIdx.x;
+      const int from = base + (i < cnt ? i : 0);
+      xy[k] = lm_xy[from];
+      ok[k] = i < cnt && lm_valid[from];
+    }
+#pragma unroll
+    for (int k = 0; k < kLmChunk / kLmThreads; ++k) {
+      const int i = k * kLmThreads + threadIdx.x;
+      if (i < padded) s_xy[i] = ok[k] ? xy[k] : make_float2(nan, nan);
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    // Gate, kUnroll steps at a time: at step k lane l tests landmark
+    // base + 32 k + l into bit k of its mask. No branch and no vote
+    // inside a round.
+    uint64_t mine = 0;
+    for (int k0 = 0; 32 * k0 < cnt; k0 += kUnroll) {
+      uint32_t bits = 0;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float2 l = s_xy[32 * (k0 + u) + lane];
+        // the gate in the plain version's rounding: no fused multiply-add
+        const float dx = __fsub_rn(kxy.x, l.x);
+        const float dy = __fsub_rn(kxy.y, l.y);
+        bits |= static_cast<uint32_t>(
+                    __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) < r2)
+                << u;
+      }
+      mine |= static_cast<uint64_t>(bits) << k0;
+    }
+    uint64_t steps = mine;  // the steps with a hit in any lane
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      steps |= __shfl_xor_sync(kFull, steps, off);
+    any |= steps != 0u;
+    if (nb == 0) continue;  // no bank slot: every hit is at 256
+
+    // Hits, kBatch at a time: group g takes the batch's g-th hit and
+    // merges it into its own top-2 (the key merge is order-free). The
+    // bank bytes of the next batch are loaded before this one is summed,
+    // so their round trip overlaps this batch's work.
+    uint32_t cur = 0u;  // hits left in the current step
+    int cur_base = 0;
+    // the next batch: group g's hit (-1 if the batch has fewer), and the
+    // hit every lane loads (a group without one loads the batch's first)
+    auto next_batch = [&](int& hit_j, int& load_j) {
+      hit_j = -1;
+      int count = 0;
+      while (count < kBatch && (steps | cur)) {
+        if (!cur) {
+          const int k = __ffsll(steps) - 1;
+          steps &= steps - 1;
+          cur = __ballot_sync(kFull, (mine >> k) & 1u);
+          cur_base = base + 32 * k;
+        }
+        const int hit = cur_base + __ffs(cur) - 1;
+        cur &= cur - 1;
+        if (group == count) hit_j = hit;
+        ++count;
+      }
+      const int first = __shfl_sync(kFull, hit_j, 0);
+      load_j = hit_j >= 0 ? hit_j : first;
+      return count;
+    };
+    int hit_j, load_j;
+    int count = next_batch(hit_j, load_j);
+    BankPass pass = {};
+    if (count) pass = load_pass(bank, bank_valid, load_j, nb, 0, sub);
+    while (count) {
+      int next_hit, next_load;
+      const int next_count = next_batch(next_hit, next_load);
+      BankPass next = {};
+      if (next_count)
+        next = load_pass(bank, bank_valid, next_load, nb, 0, sub);
+      int d = pass_min(pass, kb, kPad);
+      for (int s0 = kSlotsPerPass; s0 < nb; s0 += kSlotsPerPass)
+        d = pass_min(load_pass(bank, bank_valid, load_j, nb, s0, sub), kb,
+                     d);
+      if (hit_j >= 0) top2_add(d, static_cast<uint32_t>(hit_j), best, second);
+      hit_j = next_hit;
+      load_j = next_load;
+      count = next_count;
+      pass = next;
+    }
+  }
+
+  // merge the four groups' top-2
+#pragma unroll
+  for (int off = kHitLanes; off < 32; off <<= 1)
+    top2_merge(best, second, __shfl_xor_sync(kFull, best, off),
+               __shfl_xor_sync(kFull, second, off));
+  if (row < n && lane == 0) {
+    best_out[row] = static_cast<int>(best >> kArgBits);
+    second_out[row] = second;
+    arg_out[row] = static_cast<int>(best & kArgMask);
+    any_out[row] = any;
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
 // Allows hamming_top2_kernel its shared memory on the current device, once
@@ -437,15 +602,16 @@ int vslam_landmark_top2(const void* kp, const void* kp_valid,
                         void* best, void* second, void* arg, void* any,
                         void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (nb < 0 || nb > kMaxBank)
+  if (p < 0 || p > static_cast<int>(kArgMask) + 1 || nb < 0 ||
+      nb > kMaxBank)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kThreads - 1) / kThreads);
-  landmark_top2_kernel<<<grid, kThreads, 0,
+  const dim3 grid((n + kLmWarps - 1) / kLmWarps);
+  landmark_top2_kernel<<<grid, kLmThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(kp), static_cast<const bool*>(kp_valid),
-      static_cast<const float*>(kp_xy), static_cast<const uint32_t*>(bank),
+      static_cast<const uint8_t*>(kp), static_cast<const bool*>(kp_valid),
+      static_cast<const float2*>(kp_xy), static_cast<const uint8_t*>(bank),
       static_cast<const bool*>(bank_valid),
-      static_cast<const float*>(lm_xy), static_cast<const bool*>(lm_valid),
+      static_cast<const float2*>(lm_xy), static_cast<const bool*>(lm_valid),
       r2, n, p, nb, static_cast<int*>(best), static_cast<int*>(second),
       static_cast<int*>(arg), static_cast<bool*>(any));
   return static_cast<int>(cudaGetLastError());

@@ -23,6 +23,8 @@ import typing
 import numpy as np
 import torch
 
+from . import resolve_device
+
 
 def _as_mapping(x):
     if hasattr(x, "_asdict"):
@@ -32,9 +34,11 @@ def _as_mapping(x):
     return x
 
 
-def from_arrays(cls, arrays, device="cpu"):
+def from_arrays(cls, arrays, device="cuda"):
     """Build the port's dataclass ``cls`` from a mapping of field name ->
-    array. Missing optional fields keep their defaults."""
+    array, on ``device`` (the card unless the caller names another; raises
+    if there is none). Missing optional fields keep their defaults."""
+    device = resolve_device(device)
     arrays = _as_mapping(arrays)
     hints = typing.get_type_hints(cls)
     kwargs = {}

@@ -6,15 +6,16 @@ repository's packages), a shared library with a plain C interface that is
 loaded with ``ctypes``. The build is keyed on a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
 
-``hamming_top2`` hands the {0,1} descriptor bytes to the kernel, which
-packs them in its load stage and reads them with 16-byte loads: a strided
-input is copied, and a contiguous one that is not 16-byte aligned raises.
-``landmark_top2`` packs the descriptor bits into the kernel's 32-byte
-layout and calls ``landmark_top2_packed``. Each launcher checks its
-inputs, allocates the outputs, launches on PyTorch's current stream,
-raises if the launch was refused, and adds one to its entry of
-``LAUNCHES``. The plain PyTorch versions of the same functions are
-``ops/hamming.py``'s ``landmark_top2_plain`` and ``hamming_top2_plain``.
+Both launchers hand the {0,1} descriptor bytes the main path holds to
+their kernel, which reads them with 16-byte loads (the descriptor top-2
+packs them to bits as it stages them; the landmark top-2 XORs the bytes
+as they are, and reads (x, y) pairs with 8-byte loads): a strided input
+is copied, and a contiguous one off that alignment raises. Each
+launcher checks its inputs, allocates the outputs, makes one launch on
+PyTorch's current stream, raises if the launch was refused, and adds one
+to its entry of ``LAUNCHES``. The plain PyTorch versions of the same
+functions are ``ops/hamming.py``'s ``landmark_top2_plain`` and
+``hamming_top2_plain``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from pathlib import Path
 
 import torch
 
-from . import describe
 from .hamming import gate_radius_sq
 
 LAUNCHES = {"landmark_top2": 0, "hamming_top2": 0}
@@ -41,7 +41,7 @@ LIBRARY = BUILD_DIR / "libhamming.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_BANK = 8  # kMaxBank in the source
-# hamming_top2's key holds the candidate index in 23 bits (kArgBits)
+# both kernels' merge key holds the candidate index in 23 bits (kArgBits)
 MAX_CANDIDATES = 1 << 23
 
 _lock = threading.Lock()
@@ -102,8 +102,8 @@ def _load():
 def _check(t, name, dtype, shape, device, align=1):
     """Checks device, dtype and shape and returns ``t`` contiguous (a
     strided ``t`` is copied). The kernel reads the result with
-    ``align``-byte loads, so a contiguous ``t`` that is not ``align``-byte
-    aligned raises.
+    ``align``-byte loads, so a contiguous, nonempty ``t`` that is not
+    ``align``-byte aligned raises.
     """
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -113,15 +113,10 @@ def _check(t, name, dtype, shape, device, align=1):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     t = t.contiguous()
-    if t.data_ptr() % align:
+    if t.numel() and t.data_ptr() % align:
         raise ValueError(f"{name} is not {align}-byte aligned; the kernel "
                          f"reads it with {align}-byte loads")
     return t
-
-
-def _packed(bits, name, rows, device):
-    bits = _check(bits, name, torch.uint8, rows + (256,), device)
-    return describe.pack_bits(bits).contiguous()
 
 
 def _cuda_device(t, kernel: str) -> torch.device:
@@ -169,36 +164,30 @@ def landmark_top2(kp_bits, kp_valid, kp_xy, bank_bits, bank_valid,
                   lm_proj_xy, lm_valid, max_dist_2d):
     """Kernel version of ``hamming.landmark_top2_plain`` (CUDA tensors).
 
-    kp_bits [N, 256] uint8, kp_valid [N] bool, kp_xy [N, 2] f32; bank_bits
-    [P, B, 256] uint8 (B <= 8), bank_valid [P, B] bool, lm_proj_xy [P, 2]
-    f32, lm_valid [P] bool; max_dist_2d a number. Returns (best, second,
-    arg) int32 [N] and any_candidate bool [N].
+    kp_bits [N, 256] uint8 {0,1}, kp_valid [N] bool, kp_xy [N, 2] f32;
+    bank_bits [P, B, 256] uint8 {0,1} (B <= 8), bank_valid [P, B] bool,
+    lm_proj_xy [P, 2] f32, lm_valid [P] bool; max_dist_2d a number. Where
+    contiguous, the descriptor bytes must be 16-byte and the xy 8-byte
+    aligned. Returns (best, second, arg) int32 [N] and any_candidate bool
+    [N].
     """
     dev = _cuda_device(kp_bits, "landmark_top2")
     n = kp_bits.shape[0]
     p, nb = bank_bits.shape[0], bank_bits.shape[1]
-    return landmark_top2_packed(
-        _packed(kp_bits, "kp_bits", (n,), dev), kp_valid, kp_xy,
-        _packed(bank_bits, "bank_bits", (p, nb), dev), bank_valid,
-        lm_proj_xy, lm_valid, max_dist_2d)
-
-
-def landmark_top2_packed(kp, kp_valid, kp_xy, bank, bank_valid, lm_proj_xy,
-                         lm_valid, max_dist_2d):
-    """``landmark_top2`` on descriptors already packed (kp [N, 32], bank
-    [P, B, 32] uint8): the launch itself."""
-    dev = _cuda_device(kp, "landmark_top2")
-    n = kp.shape[0]
-    p, nb = bank.shape[0], bank.shape[1]
     if nb > MAX_BANK:
         raise ValueError(f"landmark bank of {nb} slots; the kernel takes at "
                          f"most {MAX_BANK}")
-    kp = _check(kp, "kp", torch.uint8, (n, 32), dev)
-    bank = _check(bank, "bank", torch.uint8, (p, nb, 32), dev)
+    if p > MAX_CANDIDATES:
+        raise ValueError(f"{p} landmarks; the kernel takes at most "
+                         f"{MAX_CANDIDATES}")
+    kp = _check(kp_bits, "kp_bits", torch.uint8, (n, 256), dev, align=16)
+    bank = _check(bank_bits, "bank_bits", torch.uint8, (p, nb, 256), dev,
+                  align=16)
     kv = _check(kp_valid, "kp_valid", torch.bool, (n,), dev)
-    kxy = _check(kp_xy, "kp_xy", torch.float32, (n, 2), dev)
+    kxy = _check(kp_xy, "kp_xy", torch.float32, (n, 2), dev, align=8)
     bv = _check(bank_valid, "bank_valid", torch.bool, (p, nb), dev)
-    lxy = _check(lm_proj_xy, "lm_proj_xy", torch.float32, (p, 2), dev)
+    lxy = _check(lm_proj_xy, "lm_proj_xy", torch.float32, (p, 2), dev,
+                 align=8)
     lv = _check(lm_valid, "lm_valid", torch.bool, (p,), dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)
     second = torch.empty_like(best)

@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..config import DEVICE_TUNABLE, SlamConfig
 from ..core import state as state_mod
 from ..core.state import KeyframeState, LandmarkState, TensorState
@@ -64,16 +65,18 @@ class StreamState(TensorState):
 
 
 class StreamingVO:
-    """Stereo VO runner on one device (see module docstring)."""
+    """Stereo VO runner on one device (see module docstring): the card
+    unless the caller asks for another (``device="cpu"``); raises where
+    there is no card and none was asked for."""
 
     def __init__(self, calib: Calibration,
                  config: Optional[SlamConfig] = None,
-                 max_frames: int = 8192, device="cpu"):
+                 max_frames: int = 8192, device="cuda"):
         self.cfg = config or SlamConfig()
         self.calib = calib
         self.cam_name = calib.cam_types[0]
         self.max_frames = max_frames
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.reset()
 

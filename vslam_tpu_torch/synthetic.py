@@ -315,3 +315,93 @@ def descriptor_ties(case: str, seed: int = 7):
     else:
         b[:] = a[5]
     return a, b, rng.rand(n) < 0.9, rng.rand(m) < 0.9
+
+
+LANDMARK_TIE_CASES = ("far_copies", "slot_ties", "at_256", "all_gated")
+
+
+def landmark_ties(case: str, seed: int = 11):
+    """Inputs of the guided landmark top-2, numpy, where the argmin's
+    lowest-index rule, the multiset second-best and the 256 rule decide
+    rows: (kp_bits [N, 256] uint8, kp_valid [N], kp_xy [N, 2] float32,
+    bank_bits [P, B, 256] uint8, bank_valid [P, B], lm_xy [P, 2] float32,
+    lm_valid [P], max_dist_2d 20.0).
+
+    Keypoints lie on a 100 px grid; landmarks that no case places lie
+    between grid points, outside every gate. far_copies: identical banks
+    on four gated landmarks per keypoint, 37, 700 and 2100 apart in index
+    (other gate steps and another 2048-landmark chunk), some of them
+    invalid. slot_ties: equal distances reached through different bank
+    slots of different landmarks, the lower landmark index through the
+    higher slot. at_256: gated landmarks whose banks are all invalid, or
+    complements of the keypoint (distance 256): best 256 with a candidate.
+    all_gated: every landmark inside the gate of keypoints 0-3, banks
+    repeating with period 37.
+    """
+    rng = np.random.RandomState(seed)
+    n, p = {"far_copies": (28, 2200), "slot_ties": (28, 700),
+            "at_256": (28, 600), "all_gated": (28, 650)}[case]
+    nb = 4
+    g = np.arange(n)
+    kxy = np.stack([40.0 + 100 * (g % 7), 40.0 + 100 * (g // 7)], 1)
+    kxy += rng.rand(n, 2) * 5
+    cell = rng.randint(0, n, p)  # between grid points: >= 60 px from any
+    lxy = kxy[cell] + 50.0 + rng.uniform(-5, 5, (p, 2))
+    kp = rng.randint(0, 2, (n, 256)).astype(np.uint8)
+    bank = rng.randint(0, 2, (p, nb, 256)).astype(np.uint8)
+    bv = rng.rand(p, nb) < 0.8
+    lv = rng.rand(p) < 0.95
+    kv = rng.rand(n) < 0.9
+
+    def near(i, j):  # landmark j well inside keypoint i's gate
+        lxy[j] = kxy[i] + rng.uniform(-8, 8, 2)
+        lv[j] = True
+
+    def noisy(i, d):  # keypoint i's descriptor with d bits flipped
+        out = kp[i].copy()
+        out[rng.choice(256, d, replace=False)] ^= 1
+        return out
+
+    if case == "far_copies":
+        for i in range(24):
+            same = np.stack([noisy(i, 0 if i % 2 == 0 else 5)
+                             for _ in range(nb)])
+            for j in (i, i + 37, i + 700, i + 2100):
+                near(i, j)
+                bank[j] = same
+                bv[j] = True
+            if i % 3 == 0:
+                lv[i] = False  # the first copy is not a landmark: i + 37
+    elif case == "slot_ties":
+        for i in range(n):
+            d = rng.randint(0, 30)
+            j1, j2, j3 = i, 300 + i, 600 + i
+            for j in (j1, j2, j3):
+                near(i, j)
+                bv[j] = True
+            bank[j1, 3] = noisy(i, d)
+            bank[j1, 1] = noisy(i, d)  # a tie inside one bank as well
+            bank[j2, 0] = noisy(i, d)
+            bank[j3, 2] = noisy(i, d + 1)
+            if i % 4 == 1:
+                bv[j1, [1, 3]] = False  # then j2 alone is at d
+    elif case == "at_256":
+        for i in range(n):
+            for j in (i, 200 + i, 400 + i):
+                near(i, j)
+                if i < n // 2:
+                    bv[j] = False
+                else:
+                    bank[j] = 1 - kp[i]
+                    bv[j] = True
+    else:
+        kxy[1:4] = kxy[0] + rng.uniform(-0.5, 0.5, (3, 2))
+        kv[:4] = True
+        lxy[:] = kxy[0] + rng.uniform(-8, 8, (p, 2))
+        lv[:] = True
+        for j in range(37):
+            bank[j] = np.stack([noisy(rng.randint(4), rng.choice([0, 2, 5]))
+                                for _ in range(nb)])
+        bank[37:] = np.resize(bank[:37], (p - 37, nb, 256))
+    return (kp, kv, kxy.astype(np.float32), bank, bv,
+            lxy.astype(np.float32), lv, 20.0)
