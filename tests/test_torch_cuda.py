@@ -9,7 +9,9 @@ outputs are integers), at the main path's shapes, at ragged, chunk-edge
 and all-invalid shapes and on tie-heavy inputs
 (``synthetic.descriptor_ties`` and ``synthetic.landmark_ties``, which the
 CPU parity tests share), take strided inputs and refuse misaligned ones,
-and the dispatchers must route CUDA tensors through the kernels.
+and the dispatchers must route CUDA tensors through the kernels, the
+full-SLAM slice's call sites included (loop matching, the closure's
+guided matching at P = 1024).
 """
 
 import numpy as np
@@ -198,3 +200,83 @@ def test_dispatch_launches_kernels(dev):
     assert cuda_hamming.LAUNCHES["landmark_top2"] == \
         before["landmark_top2"] + 1
     assert_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def vo_map(dev):
+    """A short run of the port's StreamingVO on the CPU (at
+    tests/test_streaming.py's small_config), its map copied to the card:
+    the same inputs on both devices."""
+    from vslam_tpu_torch import interop
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.core.state import KeyframeState, LandmarkState
+    from vslam_tpu_torch.pipeline.streaming import StreamingVO
+
+    seq = synthetic.generate(num_frames=12, num_points=500, seed=3)
+    cfg = SlamConfig(
+        num_features=400, ransac_hypotheses=128, max_landmarks=8192,
+        max_keyframes=64, max_inview_landmarks=512, window_cams=24,
+        window_points=2048, window_obs=6144, ba_max_iters=10,
+        enable_relocalization=False, enable_loop_closure=False,
+        new_kf_min_inliers=60)
+    vo = StreamingVO(seq.calib, cfg, max_frames=16, device="cpu")
+    vo.run(seq.images)
+    st = vo.state
+    on_card = (interop.from_arrays(KeyframeState, interop.to_arrays(st.kf),
+                                   dev),
+               interop.from_arrays(LandmarkState, interop.to_arrays(st.lm),
+                                   dev))
+    return (st.kf, st.lm, st.intr0), on_card + (st.intr0.to(dev),)
+
+
+def test_match_vs_keyframes_launches_kernel(vo_map):
+    """Loop matching on the card: the descriptor top-2 twice per source
+    keyframe, the same table as the plain version."""
+    from vslam_tpu_torch.loop import matching
+    from vslam_tpu_torch.ops import describe
+
+    (kf, _, _), (kf_d, _, _) = vo_map
+    cur = int(kf.next_slot) - 1
+    slots = list(range(cur))
+    before = cuda_hamming.LAUNCHES["hamming_top2"]
+    got = matching.match_vs_keyframes(
+        describe.unpack_bits(kf_d.desc[cur, 0]), kf_d.kp_valid[cur, 0],
+        kf_d, slots, 0)
+    assert cuda_hamming.LAUNCHES["hamming_top2"] == before + 2 * len(slots)
+    want = matching.match_vs_keyframes(
+        describe.unpack_bits(kf.desc[cur, 0]), kf.kp_valid[cur, 0], kf,
+        slots, 0)
+    assert torch.equal(got.cpu(), want)
+    assert int((want >= 0).sum()) > 30
+
+
+@pytest.mark.parametrize("step", ["guided_refine", "verify_loop"])
+def test_closure_landmark_matching_launches_kernel(vo_map, step):
+    """The closure's guided matching at P = 1024 on the card: one landmark
+    top-2 launch per call, the plain version's match counts, the refined
+    pose within 1e-3."""
+    from vslam_tpu_torch.loop import closure
+
+    (kf, lm, intr), (kf_d, lm_d, intr_d) = vo_map
+    cur = int(kf.next_slot) - 1
+    mask = torch.zeros(kf.frame_id.shape[0], dtype=torch.bool)
+    mask[:cur] = True
+    T = kf.pose_l[cur]
+    before = cuda_hamming.LAUNCHES["landmark_top2"]
+    if step == "guided_refine":
+        got = closure._guided_refine_device(
+            kf_d, lm_d, cur, mask.to(kf_d.pose_l.device),
+            T.to(kf_d.pose_l.device), intr_d, "pinhole")
+        want = closure._guided_refine_device(kf, lm, cur, mask, T, intr,
+                                             "pinhole")
+        assert int(got[1]) == int(want[1]) > 30
+        assert torch.allclose(got[0].cpu(), want[0], atol=1e-3)
+    else:
+        got = closure._verify_loop_device(
+            kf_d, lm_d, cur, mask.to(kf_d.pose_l.device),
+            T.to(kf_d.pose_l.device), intr_d, "pinhole", 320, 240)
+        want = closure._verify_loop_device(kf, lm, cur, mask, T, intr,
+                                           "pinhole", 320, 240)
+        assert [int(x) for x in got] == [int(x) for x in want]
+        assert int(want[0]) > 30
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == before + 1

@@ -3,12 +3,14 @@
 - ``vslam_tpu_torch`` imports neither JAX nor ``vslam_tpu`` (the machine
   with the card has no JAX);
 - the host modules it copies (config, calibration I/O, ATE, the BRIEF
-  pattern, the synthetic world generator) match their originals;
+  pattern, the synthetic world generators, the loop detector and the
+  vocabulary's numpy part) match their originals;
 - state constructors, compaction and the tie-stable top-k match the JAX
   package's; device selection refuses a missing card.
 """
 
 import dataclasses
+import inspect
 import subprocess
 import sys
 import textwrap
@@ -21,18 +23,24 @@ from jax import lax
 
 from vslam_tpu import config as jconfig
 from vslam_tpu import synthetic as jsyn
+from vslam_tpu import synthetic_pano as jpano
 from vslam_tpu.core import state as jstate
 from vslam_tpu.eval import ate as jate
 from vslam_tpu.io import calib as jcalib
+from vslam_tpu.loop import detector as jdetector
+from vslam_tpu.loop import vocabulary as jvocab
 from vslam_tpu.ops import compact as jcompact
 from vslam_tpu.ops import pattern as jpattern
 import vslam_tpu_torch
 from vslam_tpu_torch import config as tconfig
 from vslam_tpu_torch import interop
 from vslam_tpu_torch import synthetic as tsyn
+from vslam_tpu_torch import synthetic_pano as tpano
 from vslam_tpu_torch.core import state as tstate
 from vslam_tpu_torch.eval import ate as tate
 from vslam_tpu_torch.io import calib as tcalib
+from vslam_tpu_torch.loop import detector as tdetector
+from vslam_tpu_torch.loop import vocabulary as tvocab
 from vslam_tpu_torch.ops import compact as tcompact
 from vslam_tpu_torch.ops import pattern as tpattern
 
@@ -43,7 +51,11 @@ def test_port_imports_no_jax():
         import vslam_tpu_torch
         from vslam_tpu_torch import interop, synthetic
         from vslam_tpu_torch.ops import cuda_hamming
-        from vslam_tpu_torch.pipeline import streaming
+        from vslam_tpu_torch.pipeline import ba_global, streaming
+        from vslam_tpu_torch.loop import (closure, detector, matching,
+                                          relocalize, vocabulary)
+        from vslam_tpu_torch.solvers import ba_blocked, pose_graph
+        from vslam_tpu_torch import synthetic_pano
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "vslam_tpu"))
         assert not bad, bad
@@ -169,3 +181,42 @@ def test_top_k_is_tie_stable_like_lax():
     vt, it = tcompact.top_k(torch.as_tensor(x), 60)
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(num_frames=5, revolutions=1.75 * 5 / 256, seed=2),
+    dict(num_frames=3, width=752, height=480, revolutions=0.1, seed=2)])
+def test_synthetic_pano_copy_byte_equal(kw):
+    a = jpano.generate_pano_loop(**kw)
+    b = tpano.generate_pano_loop(**kw)
+    assert len(a.images) == len(b.images) == kw["num_frames"]
+    for (la, ra), (lb, rb) in zip(a.images, b.images):
+        assert la.tobytes() == lb.tobytes() and ra.tobytes() == rb.tobytes()
+    assert a.poses.tobytes() == b.poses.tobytes()
+    assert a.calib.intrinsics.tobytes() == b.calib.intrinsics.tobytes()
+
+
+def test_detector_copy_is_the_original():
+    """The detector's candidate order comes from dict and set iteration,
+    so the copy is held to the original's source, line for line."""
+    assert inspect.getsource(tdetector) == inspect.getsource(jdetector)
+
+
+@pytest.mark.parametrize("name", [
+    "Vocabulary", "_hamming_np", "_kmajority", "train", "synthetic_vocab",
+    "set_idf_weights", "transform_np", "bow_from_words", "l1_score"])
+def test_vocabulary_host_copy_is_the_original(name):
+    assert inspect.getsource(getattr(tvocab, name)) == \
+        inspect.getsource(getattr(jvocab, name))
+
+
+def test_synthetic_vocab_and_transform_equal():
+    vj = jvocab.synthetic_vocab(k=4, depth=3, seed=1)
+    vt = tvocab.synthetic_vocab(k=4, depth=3, seed=1)
+    for f in dataclasses.fields(vj):
+        np.testing.assert_array_equal(getattr(vt, f.name),
+                                      getattr(vj, f.name), err_msg=f.name)
+    descs = np.random.RandomState(2).randint(0, 2, (50, 256)).astype(np.uint8)
+    for x, y in zip(tvocab.transform_np(vt, descs),
+                    jvocab.transform_np(vj, descs)):
+        np.testing.assert_array_equal(x, y)

@@ -260,3 +260,7 @@ def se3_matrix(T):
 
 def se3_from_Rt(R, t):
     return se3_make(t, matrix_to_quat(R))
+
+
+def se3_normalize(T):
+    return se3_make(se3_t(T), quat_normalize(se3_q(T)))

@@ -1,13 +1,17 @@
-"""StreamingVO: stereo visual odometry, one frame per step.
+"""StreamingVO and StreamingSLAM: stereo VO one frame per step, and full
+SLAM on top of it at polls.
 
-Port of ``StreamingVO`` in ``vslam_tpu/pipeline/streaming.py``, the VO
-configuration of the reference (tracking without relocalization or loop
-closure): per frame, detect + describe the left image, project and compact
-the landmarks, guided landmark matching, batched RANSAC PnP and the motion
-model; on keyframes, right-image features, stereo matching with the
-epipolar filter, keyframe insertion, window eviction, landmark culling and
-the synchronous windowed Schur BA; after each frame, the velocity-decay
-guard and the next frame's keyframe decision.
+Port of ``StreamingVO`` and ``StreamingSLAM`` in
+``vslam_tpu/pipeline/streaming.py``. ``StreamingVO`` is the VO
+configuration of the reference: per frame, detect + describe the left
+image, project and compact the landmarks, guided landmark matching,
+batched RANSAC PnP and the motion model; on keyframes, right-image
+features, stereo matching with the epipolar filter, keyframe insertion,
+window eviction, landmark culling and the synchronous windowed Schur BA
+(and, with a vocabulary, the keyframe's BoW words and a keyframe event);
+after each frame, the velocity-decay guard and the next frame's keyframe
+decision. ``StreamingSLAM`` adds place recognition, loop closure, global
+BA and relocalization, run on the host at polls (see its docstring).
 
 The reference fuses all of this into one jitted program and carries the
 keyframe decision on the device (``lax.cond``), because its accelerator
@@ -24,7 +28,10 @@ from ``config.seed`` (torch cannot reproduce ``jax.random``'s bits).
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -37,9 +44,10 @@ from ..core.state import KeyframeState, LandmarkState, TensorState
 from ..frontend.features import extract_features
 from ..geometry import lie
 from ..io.calib import Calibration
+from ..loop import vocabulary as vocab_mod
 from ..ops.compact import top_k
-from ..solvers import ba
-from . import ba_window, keyframe as kf_mod, tracking
+from ..solvers import ba, pnp
+from . import ba_global, ba_window, keyframe as kf_mod, tracking
 
 
 @dataclasses.dataclass
@@ -62,21 +70,48 @@ class StreamState(TensorState):
     log_slot: torch.Tensor      # [F] int32 KF slot taken this frame (-1)
     log_wdrop: torch.Tensor     # [F] int32 window-BA obs dropped at the cap
     lost_run: torch.Tensor      # [] int32 consecutive lost frames
+    # the newest frame's features (relocalization only, else None)
+    cur_bits: Optional[torch.Tensor] = None     # [N, 256] uint8
+    cur_corners: Optional[torch.Tensor] = None  # [N, 2] float32
+    cur_valid: Optional[torch.Tensor] = None    # [N] bool
+
+
+@dataclasses.dataclass
+class KeyframeEvent:
+    """A keyframe as place recognition consumes it: the frame, the slot it
+    took, its BoW words [N] int32 and its covisibility row [K] int32 at
+    insertion (device tensors until the poll reads them)."""
+    frame: int
+    slot: torch.Tensor
+    words: torch.Tensor
+    covis: torch.Tensor
 
 
 class StreamingVO:
     """Stereo VO runner on one device (see module docstring): the card
     unless the caller asks for another (``device="cpu"``); raises where
-    there is no card and none was asked for."""
+    there is no card and none was asked for.
+
+    ``vocabulary`` (a ``loop.vocabulary.Vocabulary``) turns on place
+    recognition's per-keyframe work: the BoW words of each keyframe's left
+    features and a ``KeyframeEvent`` appended to ``self.events``.
+    ``store_features`` keeps the newest frame's features in the state for
+    relocalization (and then a lost frame does not become a keyframe).
+    Without either it runs plain VO."""
 
     def __init__(self, calib: Calibration,
                  config: Optional[SlamConfig] = None,
-                 max_frames: int = 8192, device="cuda"):
+                 max_frames: int = 8192, vocabulary=None,
+                 store_features: bool = False, device="cuda"):
         self.cfg = config or SlamConfig()
         self.calib = calib
         self.cam_name = calib.cam_types[0]
         self.max_frames = max_frames
         self.device = resolve_device(device)
+        self.voc = vocabulary
+        self.dvoc = (vocab_mod.DeviceVocabulary(vocabulary, self.device)
+                     if vocabulary is not None else None)
+        self.store_features = store_features
         self.generator = torch.Generator(device=self.device)
         self.reset()
 
@@ -111,6 +146,13 @@ class StreamingVO:
             log_wdrop=torch.zeros((F,), **i32),
             lost_run=torch.zeros((), **i32),
         )
+        if self.store_features:
+            N = cfg.num_features
+            self.state = self.state.replace(
+                cur_bits=torch.zeros((N, 256), dtype=torch.uint8, device=dev),
+                cur_corners=torch.full((N, 2), -1.0, **f32),
+                cur_valid=torch.zeros((N,), dtype=torch.bool, device=dev))
+        self.events = []   # KeyframeEvent per keyframe (with a vocabulary)
         self.tune = {name: float(np.float32(v))
                      for name, v in zip(DEVICE_TUNABLE, cfg.tune_vector())}
         self.generator.manual_seed(cfg.seed)
@@ -172,6 +214,13 @@ class StreamingVO:
                               kf3.pose_l[torch.clamp(out.slot, max=K - 1)
                                          .long()], pose)
         slot = torch.where(in_cap, out.slot, st.last_kf_slot).to(torch.int32)
+        if self.dvoc is not None and bool(in_cap):
+            # an insert past the keyframe capacity logs no event: its slot
+            # would be stale
+            self.events.append(KeyframeEvent(
+                frame=st.frame, slot=slot,
+                words=self.dvoc.words(res.feats.bits, res.feats.valid),
+                covis=out.covis_weight))
         return kf3, lm3, pose_kf, slot, wp.obs_dropped
 
     def process_frame(self, img_l, img_r):
@@ -197,9 +246,10 @@ class StreamingVO:
         # on failure coast on the motion model
         pose = torch.where(ok, res.T_w_c, predicted)
 
-        if cfg.kf_require_tracked:
+        if self.store_features or cfg.kf_require_tracked:
             # a lost frame does not become a keyframe, except to bootstrap
-            # an empty map or after a sustained loss
+            # an empty map or after a sustained loss (with relocalization
+            # on, so that recovery gets the first chance at a clean pose)
             reb = P["lost_rebootstrap_frames"]
             bootstrap = st.kf.next_slot == 0
             rebootstrap = ((reb > 0) & (st.lost_run >= reb)
@@ -229,6 +279,11 @@ class StreamingVO:
         # tracking step re-arms it on low inliers
         take_next = ~do_kf & (st.take_kf | (n_inl < P["new_kf_min_inliers"]))
 
+        feat_fields = {}
+        if self.store_features:
+            feat_fields = dict(cur_bits=res.feats.bits,
+                               cur_corners=res.feats.corners,
+                               cur_valid=res.feats.valid)
         f = st.frame
         if f < self.max_frames:   # the reference drops writes past the log
             st.traj[f] = pose2
@@ -239,6 +294,7 @@ class StreamingVO:
                                          torch.full_like(last_slot, -1))
             st.log_wdrop[f] = wdrop
         self.state = st.replace(
+            **feat_fields,
             kf=kf, lm=lm, cur_pose=pose2, last_pose=pose2, vel=vel,
             # a keyframe insert restarts the loss count too
             lost_run=torch.where(ok | do_kf, torch.zeros_like(st.lost_run),
@@ -272,3 +328,341 @@ class StreamingVO:
         poses = kf.pose_l.cpu().numpy()[valid]
         order = np.argsort(fids)
         return fids[order], poses[order][:, :3], poses[order]
+
+
+class StreamingSLAM(StreamingVO):
+    """Streaming full SLAM: the VO stream plus host-side place recognition,
+    loop closure and relocalization, run at polls.
+
+    Port of ``StreamingSLAM`` in ``vslam_tpu/pipeline/streaming.py``. Every
+    ``poll_every`` frames ``poll`` reads the keyframe events logged since
+    the last poll; for each new keyframe it takes the BoW words and the
+    covisibility row, updates the inverted-file database and runs the loop
+    detector (loop_closure_utils.h:141-388). A consistent candidate that
+    passes ``compute_sim3``, ``verify_loop`` and the identity-gain gate is
+    applied to the live state: the live gauge moves rigidly onto the old
+    map, the pose graph bends the chain between them, and a global BA is
+    dispatched and skip-merged at the next poll (``pipeline/ba_global``).
+
+    Relocalization (``cfg.enable_relocalization``): the newest frame's
+    features stay in the state; when a poll finds the newest
+    ``reloc_lost_frames`` frames all lost, it runs the BoW + PnP recovery
+    (loop/relocalize.py) against the live map and patches the tracker
+    pose; failed attempts back off exponentially. ``run`` reads the loss
+    log after every frame and polls as soon as the newest frames are
+    lost, then after every frame until tracking recovers (lost mode).
+
+    The reference hides its accelerator's round trip behind a device-side
+    keyframe event ring, one packed poll buffer, lagged polls and chunked
+    dispatch; the port keeps the events in a host list and polls
+    synchronously. The host RANSAC draws of closure and relocalization
+    come from a ``torch.Generator`` seeded with ``cfg.seed + 1``.
+
+    A vocabulary is required (the reference equally loads ORBvoc.txt
+    before processing, slam.cpp:370-380).
+    """
+
+    def __init__(self, calib: Calibration, config: Optional[SlamConfig],
+                 vocabulary, max_frames: int = 8192, poll_every: int = 16,
+                 device="cuda"):
+        if vocabulary is None:
+            raise ValueError("StreamingSLAM requires a pretrained "
+                             "vocabulary (loop.vocabulary.train)")
+        cfg = config or SlamConfig()
+        if cfg.sim3_solver != "pnp":
+            raise NotImplementedError(
+                f"sim3_solver={cfg.sim3_solver!r}: the closed-form Sim(3) "
+                "solver (compute_sim3_horn, geometry/sim3.py) is not ported "
+                "yet; see ROADMAP.md Queue 1")
+        super().__init__(calib, cfg, max_frames, vocabulary=vocabulary,
+                         store_features=cfg.enable_relocalization,
+                         device=device)
+        from ..loop.detector import LoopDetector
+
+        ba_global.gba_mesh(self.cfg)   # raises for a sharded global BA
+        self.poll_every = poll_every
+        self.detector = LoopDetector(self.cfg.num_consistency)
+        self.covis_host: dict = {}
+        self.frame_of_slot: dict = {}
+        self.loop_edges: list = []
+        self.rejected_loops: list = []  # (slot, cand, n_inl, n_vis)
+        self.closure_stats: list = []   # per-closure sub-stage wall times
+        self.reloc_events: list = []    # (frame_polled, ok)
+        self.reloc_diags: list = []     # per-attempt diag dicts
+        self.gba_stats: list = []       # per global BA: iterations, costs
+        self._reloc_failures = 0        # consecutive failed attempts
+        self._reloc_next_attempt = 0    # backoff: no attempt before this
+        # wall seconds per closure stage, and why candidates did / did not
+        # close, per gate
+        self.loop_timings = collections.Counter()
+        self.loop_stats = collections.Counter()
+        self._ev_consumed = 0
+        self._lost_mode = False
+        self._last_closure_frame = -(10 ** 9)
+        self._pending_gba = None
+        self.gba_merges = 0
+        self.host_generator = torch.Generator(device=self.device)
+        self.host_generator.manual_seed(self.cfg.seed + 1)
+        # the closure and relocalization RANSAC gate, derived in float64 on
+        # the host as the reference derives it
+        self.pnp_threshold = pnp.ransac_threshold(
+            self.cfg.pnp_inlier_thresh_px)
+
+    def run(self, frames):
+        """Process [(img_l, img_r)] pairs, polling every ``poll_every``
+        frames, as soon as the newest ``reloc_lost_frames`` frames are lost,
+        after every frame while lost (lost mode), and at the end."""
+        for i, (img_l, img_r) in enumerate(frames):
+            self.process_frame(img_l, img_r)
+            if ((i + 1) % self.poll_every == 0 or self._lost_mode
+                    or self._newest_lost()):
+                self.poll()
+        self.poll()
+        return len(frames)
+
+    def _newest_lost(self) -> bool:
+        """The newest ``reloc_lost_frames`` frames all lost (relocalization
+        on). Read after every frame, so the first poll after a loss comes
+        at once: the reference's chunked driver sees the loss log at every
+        chunk boundary (streaming.py:846-895), and a reaction a whole poll
+        period late lets the sustained-loss re-bootstrap map the coasted
+        pose first."""
+        R = self.cfg.reloc_lost_frames
+        n = min(self.state.frame, self.max_frames)
+        return (self.cfg.enable_relocalization and n >= R
+                and not bool(self.state.log_ok[n - R:n].any()))
+
+    def poll(self):
+        """Process the keyframe and loss events logged since the last
+        poll."""
+        t_poll = time.perf_counter()
+        n = min(self.state.frame, self.max_frames)
+        ok_log = self.state.log_ok[:n].cpu().numpy()
+        events = self.events[self._ev_consumed:]
+        self._ev_consumed = len(self.events)
+        fetched = [(e.frame, int(e.slot), e.words.cpu().numpy(),
+                    e.covis.cpu().numpy()) for e in events]
+        self.loop_timings["poll_fetch"] += time.perf_counter() - t_poll
+        for frame, slot, words, covis in fetched:
+            if slot < 0 or slot in self.frame_of_slot:
+                continue
+            self._handle_keyframe(frame, slot, words, covis)
+        # sustained-loss detection -> relocalization (slam.cpp:1348-1367
+        # runs it per lost frame; here a poll reacts)
+        R = self.cfg.reloc_lost_frames
+        if self.cfg.enable_relocalization:
+            self._lost_mode = bool(n > 0 and not ok_log[max(0, n - R):n].any())
+        if n > 0 and ok_log[n - 1]:
+            self._reloc_failures = 0
+            self._reloc_next_attempt = 0
+        if (self.cfg.enable_relocalization and self.detector.db.bow_of
+                and n >= R and not ok_log[n - R:n].any()
+                and n >= self._reloc_next_attempt):
+            oks = np.nonzero(ok_log[:n])[0]
+            frames_lost = int(n - 1 - oks[-1]) if len(oks) else n
+            self._try_relocalize_stream(n, frames_lost)
+        self._merge_gba_if_ready()
+
+    def _merge_gba_if_ready(self):
+        """Skip-merge a dispatched global BA (slam.cpp:1410-1447). The solve
+        is done at dispatch, so with or without ``deterministic_async`` the
+        merge lands at the first poll after it."""
+        if self._pending_gba is None:
+            return
+        t0 = time.perf_counter()
+        kf2, lm2 = ba_global.merge_global_ba(self.state.kf, self.state.lm,
+                                             self._pending_gba)
+        self.state = self.state.replace(kf=kf2, lm=lm2)
+        self._pending_gba = None
+        self.gba_merges += 1
+        self.loop_timings["gba_merge"] += time.perf_counter() - t0
+
+    def keyframe_trajectory(self):
+        self._merge_gba_if_ready()
+        return super().keyframe_trajectory()
+
+    @contextlib.contextmanager
+    def _timed(self, key):
+        """Accumulate the block's wall seconds into loop_timings[key]."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.loop_timings[key] += time.perf_counter() - t0
+
+    def _graph_sets(self):
+        return {s: set(d) for s, d in self.covis_host.items()}
+
+    def _try_relocalize_stream(self, frame_now: int, frames_lost: int = 1):
+        """BoW candidates + PnP against the live map, then the tracker pose
+        patched in the stream state (the late analogue of
+        relocalize_camera, tracking.h:241-419). ``frames_lost`` scales the
+        motion gate (see loop/relocalize.py)."""
+        from ..loop import relocalize as reloc_mod
+
+        cfg, st = self.cfg, self.state
+        if int(st.cur_valid.sum()) < cfg.reloc_min_features:
+            return  # blackout frame: nothing to recognize
+        words = self.dvoc.words(st.cur_bits, st.cur_valid).cpu().numpy()
+        bow = vocab_mod.bow_from_words(self.voc, words)
+        if not bow:
+            return
+        ok, T_wc, _pairs, diag = reloc_mod.relocalize(
+            st.kf, st.lm, self.detector, st.cur_bits, st.cur_valid,
+            st.cur_corners, bow, self._graph_sets(), st.cur_pose, st.vel,
+            st.intr0, self.cam_name, cfg.motion_threshold,
+            self.pnp_threshold, self.host_generator,
+            num_hypotheses=cfg.ransac_hypotheses,
+            max_retries=cfg.track_max_retries,
+            max_candidates=cfg.reloc_max_candidates,
+            frames_lost=frames_lost,
+            # cross-gauge recoveries are only safe when loop closure can
+            # merge the gauges afterwards (see config.py)
+            gate_cap_mult=(cfg.reloc_gate_cap_mult
+                           if cfg.enable_loop_closure else
+                           min(cfg.reloc_gate_cap_mult,
+                               cfg.reloc_gate_cap_mult_no_lc)))
+        self.reloc_events.append((frame_now, bool(ok)))
+        # the features and pose the recovery used are the newest frame's
+        diag.update(frame=frame_now, frames_lost=frames_lost,
+                    applied_frame=st.frame - 1)
+        if ok:
+            diag["T_wc"] = [round(float(v), 4) for v in T_wc.cpu()]
+        self.reloc_diags.append(diag)
+        if not ok:
+            self._reloc_failures += 1
+            self._reloc_next_attempt = frame_now + min(
+                cfg.reloc_backoff_frames * (2 ** (self._reloc_failures - 1)),
+                cfg.reloc_backoff_cap_frames)
+            return
+        self._reloc_failures = 0
+        # hold off re-attempts until the recovery has had a chance to land
+        # in the loss log
+        self._reloc_next_attempt = frame_now + 2 * self.poll_every
+        # patch the tracker: recovered pose, motion model at rest, and a
+        # keyframe request so the next frame re-anchors the track
+        T = T_wc.to(torch.float32)
+        self.state = st.replace(
+            cur_pose=T, last_pose=T.clone(),
+            vel=lie.identity_pose(torch.float32, self.device),
+            take_kf=torch.ones((), dtype=torch.bool, device=self.device))
+
+    def _handle_keyframe(self, frame_idx: int, slot: int, words, covis_row):
+        from ..loop import closure as closure_mod
+
+        _T = self._timed
+        cfg = self.cfg
+        self.frame_of_slot[slot] = frame_idx
+        edges = {int(s): int(covis_row[s])
+                 for s in np.nonzero(covis_row >= cfg.num_cov_threshold)[0]
+                 if s != slot}
+        self.covis_host[slot] = edges
+        for s, w in edges.items():
+            self.covis_host.setdefault(s, {})[slot] = w
+
+        bow = vocab_mod.bow_from_words(self.voc, words)
+        if not bow:
+            return
+        if not cfg.enable_loop_closure:
+            # relocalization-only mode still needs the recognition database
+            self.detector.db.insert(slot, bow)
+            return
+        with _T("detect"):
+            candidates = self.detector.detect(
+                slot, bow, edges, self._graph_sets(),
+                2 * cfg.num_cov_threshold,
+                essential_threshold=cfg.num_ess_threshold)
+        self.loop_stats["candidates"] += len(candidates)
+        if self.loop_edges and frame_idx - self._last_closure_frame \
+                < cfg.loop_cooldown_frames:
+            self.loop_stats["cooldown"] += len(candidates)
+            return  # cooldown: the same revisit keeps re-detecting
+        for cand in candidates:
+            gap = frame_idx - self.frame_of_slot.get(cand, frame_idx)
+            if gap <= cfg.loop_closing_time_threshold:
+                self.loop_stats["too_recent"] += 1
+                continue
+            st = self.state
+            nbrs = sorted(self.covis_host.get(cand, {}))
+            with _T("sim3"):
+                ok, sim3 = closure_mod.compute_sim3(
+                    st.kf, st.lm, slot, cand, nbrs, st.intr0, self.cam_name,
+                    self.pnp_threshold, self.host_generator,
+                    num_hypotheses=cfg.ransac_hypotheses)
+            if not ok:
+                self.loop_stats["sim3_failed"] += 1
+                continue
+            if cfg.enable_loop_verification:
+                verify = dict(px_gate=cfg.loop_verify_px,
+                              threshold=cfg.match_max_dist,
+                              ratio=cfg.match_next_best)
+                with _T("verify"):
+                    n_inl, n_vis = closure_mod.verify_loop(
+                        st.kf, st.lm, slot, cand, nbrs, sim3, st.intr0,
+                        self.cam_name, self.calib.width, self.calib.height,
+                        **verify)
+                if (n_inl < cfg.loop_verify_min_inliers
+                        or n_inl < cfg.loop_verify_min_ratio
+                        * max(n_vis, 1)):
+                    self.loop_stats["verify_failed"] += 1
+                    self.rejected_loops.append((slot, cand, n_inl, n_vis))
+                    continue
+                if cfg.loop_verify_min_gain > 0:
+                    # identity-gain gate: reject corrections that do not
+                    # beat the current poses at explaining the candidate
+                    # side's structure
+                    sim3_id = lie.se3_mul(lie.se3_inv(st.kf.pose_l[cand]),
+                                          st.kf.pose_l[slot])
+                    with _T("verify"):
+                        n_id, _ = closure_mod.verify_loop(
+                            st.kf, st.lm, slot, cand, nbrs, sim3_id,
+                            st.intr0, self.cam_name, self.calib.width,
+                            self.calib.height, **verify)
+                    if n_inl < cfg.loop_verify_min_gain * max(n_id, 1):
+                        self.loop_stats["no_gain"] += 1
+                        self.rejected_loops.append((slot, cand, n_inl,
+                                                    -n_id))
+                        continue
+            if not cfg.use_sim3:
+                sim3 = lie.identity_pose(torch.float32, self.device)
+            # late application: the stream has tracked past `slot`, so the
+            # whole live gauge (slot, every newer keyframe, the tracker)
+            # moves rigidly onto the old map and the pose graph bends the
+            # chain between the two anchors
+            newer = [s for s, f in self.frame_of_slot.items()
+                     if f >= self.frame_of_slot[slot]]
+            new_cur, new_last = closure_mod.corr_apply(
+                st.kf.pose_l[cand], sim3, st.kf.pose_l[slot], st.cur_pose,
+                st.last_pose)
+            with _T("pose_graph"):
+                kf2, lm2, cl_stats = closure_mod.loop_closure(
+                    st.kf, st.lm, slot, cand, sim3, self.covis_host,
+                    st.T_0_1, essential_threshold=cfg.num_ess_threshold,
+                    live_slots=newer, huber=1.0, max_iters=20)
+            # the tracker lives in the corrected gauge now (vel is relative:
+            # invariant under the left world correction)
+            self.state = st.replace(kf=kf2, lm=lm2, cur_pose=new_cur,
+                                    last_pose=new_last)
+            self.loop_edges.append((slot, cand))
+            self.closure_stats.append(
+                {k: v for k, v in cl_stats.items() if k.startswith("t_")})
+            self.loop_stats["closed"] += 1
+            self._last_closure_frame = frame_idx
+            if cfg.enable_gba_after_loop:
+                # a GBA already pending is superseded: its snapshot predates
+                # this closure's correction
+                st = self.state
+                t0 = time.perf_counter()
+                with _T("gba_dispatch"):
+                    self._pending_gba = ba_global.dispatch_global_ba(
+                        st.kf, st.lm, st.intr0, st.intr1,
+                        cam_name=self.cam_name, huber=cfg.ba_huber_px,
+                        max_iters=cfg.gba_max_iters,
+                        cg_iters=cfg.gba_cg_iters,
+                        mesh=ba_global.gba_mesh(cfg))
+                stats = self._pending_gba.stats
+                self.gba_stats.append(dict(
+                    frame=frame_idx, iterations=int(stats["iterations"]),
+                    initial_cost=float(stats["initial_cost"]),
+                    final_cost=float(stats["final_cost"]),
+                    seconds=time.perf_counter() - t0))
