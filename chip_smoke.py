@@ -52,7 +52,37 @@ skipped.
    the trajectory is finite and SLAM keyframe ATE is at most 1.15x the
    VO control's.
 
-Phases 6 and 7 run with PyTorch's deterministic algorithms (see
+8. The command line at full width: phase 7's world written to a temporary
+   directory as a mav0-layout dataset of binary PGM images with its
+   calibration, the vocabulary as a DBoW2 text file and phase 7's
+   configuration as JSON; ``cli.main`` three times (the faithful
+   ``SlamSystem`` driver, the same with ``--no-loop --no-reloc`` as its
+   control, ``--driver streaming``). Checks the return codes, that each
+   map JSON loads and keeps the ``value0..value4`` layout, a finite ATE
+   within the orbit's diameter (the faithful run against its control is
+   printed: on this world the seed decides which of the two breaks), the
+   same entry point on the small world of the end-to-end tests (keyframe
+   ATE under 0.08 m), the kernels' launches (landmark top-2 at least once per frame, descriptor
+   top-2 at least twice per keyframe) and the vocabulary read back; prints
+   frames per second, loops, GBA merges, relocalizations and peak memory.
+   Then a ``checkpoint.save`` / ``load`` round trip in the middle of a
+   ``SlamSystem`` run: frame 64 after a restore into a fresh system gives
+   the uninterrupted run's ``info`` and pose.
+9. The large-map solvers at the size they exist for: ``solve_ba_cg`` on
+   the orbit problem of 8192 cameras, 65,536 landmarks and 1,048,576
+   observations (3 LM iterations of 8 CG iterations; the cost must halve
+   and the mean camera error fall), ``solve_pose_graph_cg`` on a ring of
+   2048 keyframes with one loop edge (the cost must fall below a fifth),
+   and ``run_global_ba`` on a 160-keyframe orbit state, which must take
+   the matrix-free branch and lower the cost. Prints ms per LM iteration,
+   CG iterations and peak memory.
+
+``python3 chip_smoke.py --faithful-seeds 0 1 2 3 4 5`` runs, instead of
+the phases, the faithful driver and its control on phase 7's world over
+those RANSAC seeds (``sweep_faithful_seeds``): the measurement behind
+phase 8's bar.
+
+Phases 6 to 8 run with PyTorch's deterministic algorithms (see
 ``deterministic``): each SLAM arm and its VO control compute the same
 frames until the first poll that acts, and a run repeats bit for bit on
 one software stack.
@@ -542,6 +572,9 @@ CREEP_FROM, CREEP_TO, BOUNDARY_FRAME = 110, 150, 100
 T_OFF = np.array([2.4, -0.6, 1.6, 0.0, 0.04997917, 0.0, 0.99875026],
                  np.float32)
 
+# the pano world's orbit (synthetic_pano.generate_pano_loop's default)
+PANO_ORBIT_RADIUS_M = 3.0
+
 # The JAX package's full-SLAM figures on the bench world (BENCH_r05.json):
 # taken on a TPU, reported beside the port's, never gated on.
 JAX_TPU_FULL_SLAM = dict(loops_closed=1, gba_merges=1, reloc="1/1",
@@ -837,7 +870,362 @@ def phase_full_slam(dev, n_frames=288, warm=32, width=752, height=480):
     check(slam["kf_ate_m"] <= 1.15 * vo["kf_ate_m"],
           f"full SLAM: keyframe ATE {slam['kf_ate_m']:.3f} m > 1.15 x the VO "
           f"control's {vo['kf_ate_m']:.3f} m")
-    return slam["launches"], out
+    return slam["launches"], out, seq, voc
+
+
+# ---------------------------------------------------------------------------
+# the faithful driver and the command line; the large-map solvers
+# ---------------------------------------------------------------------------
+
+def phase_cli(dev, seq, voc):
+    """The command line on phase 7's world, from files (see the module
+    docstring, phase 8)."""
+    import tempfile
+
+    from vslam_tpu_torch import cli, synthetic
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.io import calib as calib_mod
+    from vslam_tpu_torch.io import map_io
+    from vslam_tpu_torch.loop import vocabulary as vocab_mod
+    from vslam_tpu_torch.pipeline.slam import SlamSystem
+    from vslam_tpu_torch.utils import checkpoint
+
+    n_frames = len(seq.images)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "mav0")
+        synthetic.write_mav0(seq, data)
+        calib_path = os.path.join(tmp, "calib.json")
+        calib_mod.save_calibration(seq.calib, calib_path)
+        voc_path = os.path.join(tmp, "voc.txt")
+        vocab_mod.save_dbow2_text(voc, voc_path)
+        cfg_path = os.path.join(tmp, "config.json")
+        full_slam_config(SlamConfig, True).to_json(cfg_path)
+        print(f"command line: dataset ({n_frames} PGM pairs), calibration, "
+              f"vocabulary and config written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        for name, extra in (("slam", []),
+                            ("control", ["--no-loop", "--no-reloc"]),
+                            ("streaming", ["--driver", "streaming"])):
+            map_name = os.path.join(tmp, f"map_{name}")
+            metrics = os.path.join(tmp, f"metrics_{name}.jsonl")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["--dataset-path", data, "--cam-calib", calib_path,
+                           "--voc-path", voc_path, "--config", cfg_path,
+                           "--map-name", map_name, "--metrics", metrics,
+                           *extra])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = read_launches()
+            check(rc == 0, f"command line ({name}): return code {rc}")
+            drv = cli.LAST_DRIVER
+            with open(map_name + ".json") as f:
+                raw = json.load(f)
+            check(sorted(raw) == [f"value{i}" for i in range(5)],
+                  f"command line ({name}): map keys {sorted(raw)}")
+            cams, lms, est, gt, ate_val = map_io.load_map(map_name + ".json")
+            with open(metrics) as f:
+                rows = [json.loads(line) for line in f]
+            n_kf = sum(r["kind"] == "keyframe" for r in rows)
+            r = dict(
+                seconds=dt, fps=n_frames / dt, frames=len(rows),
+                keyframes=n_kf, tracked=sum(bool(x["ok"]) for x in rows),
+                kf_ate_m=ate_val, cameras=len(cams), landmarks=len(lms),
+                loops_closed=len(getattr(drv, "loop_edges", [])),
+                gba_merges=getattr(drv, "gba_merges", 0),
+                reloc_attempts=len(getattr(drv, "reloc_events", [])),
+                reloc_ok=sum(1 for _, ok in getattr(drv, "reloc_events", [])
+                             if ok),
+                peak_memory_bytes=int(torch.cuda.max_memory_allocated()),
+                launches=launches,
+                # landmark top-2: once per frame in tracking, the rest in
+                # the closure's guided matching and verification; descriptor
+                # top-2: twice per keyframe in stereo matching, the rest in
+                # the harvests of the closure and of relocalization
+                launch_split=dict(
+                    landmark_top2=dict(
+                        tracking=len(rows),
+                        closure=launches["landmark_top2"] - len(rows)),
+                    hamming_top2=dict(
+                        stereo=2 * n_kf,
+                        harvest=launches["hamming_top2"] - 2 * n_kf)))
+            if name == "slam":
+                r["stage_timer"] = drv.timer.summary()
+                r["rejected_loops"] = len(drv.rejected_loops)
+            out[name] = r
+            print(f"command line, {name}: " + json.dumps(r), flush=True)
+            check(len(rows) == n_frames, f"command line ({name}): "
+                                         f"{len(rows)} frames")
+            check(np.isfinite(ate_val), f"command line ({name}): ATE "
+                                        f"{ate_val}")
+            check(len(cams) == n_kf and len(gt) == n_frames
+                  and len(est) == n_kf and len(lms) > 0,
+                  f"command line ({name}): map contents")
+            check(launches["landmark_top2"] >= n_frames,
+                  f"command line ({name}): landmark_top2 launched "
+                  f"{launches['landmark_top2']} times in {n_frames} frames")
+            check(launches["hamming_top2"] >= 2 * n_kf,
+                  f"command line ({name}): hamming_top2 launched "
+                  f"{launches['hamming_top2']} times for {n_kf} keyframes")
+            if name != "control":
+                got = drv.voc
+                check(got.num_words == voc.num_words
+                      and np.array_equal(got.node_desc, voc.node_desc)
+                      and np.array_equal(got.weights, voc.weights)
+                      and np.array_equal(got.children, voc.children),
+                      f"command line ({name}): the vocabulary read back "
+                      f"differs from the one saved")
+        # The faithful run against its control is printed, not gated: on
+        # this world both break in the second lap (300 features, a 3 m
+        # orbit), at a frame that the RANSAC seed decides. Over seeds 0-5 on
+        # an H100 the faithful run ended at 0.72-2.64 x its control (2.09-
+        # 5.25 m against 1.13-3.48 m), within 1.15 x in 3 of 6. The gate is
+        # the world's scale: a trajectory that ran away ends tens of metres
+        # off, one that holds together within the orbit's diameter.
+        ratio = out["slam"]["kf_ate_m"] / out["control"]["kf_ate_m"]
+        print(f"command line: faithful SLAM keyframe ATE "
+              f"{out['slam']['kf_ate_m']:.3f} m, {ratio:.2f} x its control's "
+              f"{out['control']['kf_ate_m']:.3f} m", flush=True)
+        for name in ("slam", "control", "streaming"):
+            check(out[name]["kf_ate_m"] < 2 * PANO_ORBIT_RADIUS_M,
+                  f"command line ({name}): keyframe ATE "
+                  f"{out[name]['kf_ate_m']:.3f} m, beyond the orbit's "
+                  f"diameter")
+
+        # the same entry point held to the repository's own bar: the small
+        # world of the end-to-end VO tests, keyframe ATE under 0.08 m
+        small = synthetic.generate(num_frames=24, num_points=500, seed=3)
+        small_dir = os.path.join(tmp, "small")
+        synthetic.write_mav0(small, os.path.join(small_dir, "mav0"))
+        calib_mod.save_calibration(small.calib,
+                                   os.path.join(small_dir, "calib.json"))
+        small_config(SlamConfig).to_json(os.path.join(small_dir, "cfg.json"))
+        rc = cli.main(["--dataset-path", os.path.join(small_dir, "mav0"),
+                       "--cam-calib", os.path.join(small_dir, "calib.json"),
+                       "--config", os.path.join(small_dir, "cfg.json"),
+                       "--map-name", os.path.join(small_dir, "map")])
+        small_ate = map_io.load_map(os.path.join(small_dir, "map.json"))[4]
+        print(f"command line, small world: keyframe ATE {small_ate:.4f} m "
+              f"over {len(cli.LAST_DRIVER.slot_of_frame)} keyframes",
+              flush=True)
+        check(rc == 0 and small_ate < 0.08,
+              f"command line (small world): return code {rc}, keyframe ATE "
+              f"{small_ate}")
+        out["small_world_kf_ate_m"] = small_ate
+
+        # checkpoint round trip in the middle of a SlamSystem run
+        images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
+                  for l, r in seq.images[:65]]
+        a = SlamSystem(seq.calib, full_slam_config(SlamConfig, True),
+                       device=dev)
+        a.set_vocabulary(voc)
+        for f in range(64):
+            a.process_frame(*images[f])
+        ckpt = os.path.join(tmp, "ckpt")
+        checkpoint.save(a, ckpt)
+        info_a = a.process_frame(*images[64])
+        b = checkpoint.load(
+            SlamSystem(seq.calib, full_slam_config(SlamConfig, True),
+                       device=dev), ckpt, device=dev)
+        info_b = b.process_frame(*images[64])
+        same_pose = bool(torch.equal(a.track.current_pose,
+                                     b.track.current_pose))
+        print(f"checkpoint: frame 64 uninterrupted {json.dumps(info_a)}; "
+              f"restored {json.dumps(info_b)}; same pose bits: {same_pose}",
+              flush=True)
+        check(info_a == info_b and same_pose,
+              "checkpoint: the restored run's frame 64 differs")
+        check(b.voc.num_words == voc.num_words and b.frame == 65,
+              "checkpoint: restored bookkeeping")
+    return out
+
+
+def phase_large_solvers(dev, smi):
+    """The matrix-free solvers above the dense limits (see the module
+    docstring, phase 9)."""
+    from vslam_tpu_torch import interop, synthetic
+    from vslam_tpu_torch.core.state import KeyframeState, LandmarkState
+    from vslam_tpu_torch.loop import closure
+    from vslam_tpu_torch.pipeline import ba_global
+    from vslam_tpu_torch.solvers import ba, ba_cg, pose_graph, pose_graph_cg
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, int(
+            torch.cuda.max_memory_allocated())
+
+    # ---- solve_ba_cg: 8192 cameras, 65,536 landmarks, 1,048,576 obs ----
+    t0 = time.perf_counter()
+    arrays, poses_gt, _ = synthetic.make_big_problem()
+    prob = interop.from_arrays(ba.BAProblem, arrays, dev)
+    t_make = time.perf_counter() - t0
+    check(prob.poses.shape[0] == 8192
+          and prob.obs_cam.shape[0] == 1024 * 1024, "big problem's size")
+    solve = lambda: ba_cg.solve_ba_cg(  # noqa: E731
+        prob, cam_name="pinhole", huber=2.0, max_iters=3, cg_iters=8)
+    solve()   # untimed: allocator warm-up
+    (poses, points, stats), dt, peak = timed(solve)
+    init, final = float(stats["initial_cost"]), float(stats["final_cost"])
+    gt = torch.as_tensor(poses_gt[:, :3], device=dev)
+    err0 = float(torch.linalg.norm(prob.poses[:, :3] - gt, dim=-1).mean())
+    err1 = float(torch.linalg.norm(poses[:, :3] - gt, dim=-1).mean())
+    r_ba = dict(cameras=8192, landmarks=65536, observations=1024 * 1024,
+                valid_observations=int(prob.obs_valid.sum()),
+                initial_cost=init, final_cost=final,
+                lm_iterations=stats["iterations"],
+                cg_iterations=stats["cg_iterations"],
+                ms_per_lm_iteration=1e3 * dt / max(stats["iterations"], 1),
+                seconds=dt, mean_camera_error_m=[err0, err1],
+                peak_memory_bytes=peak, seconds_generate=t_make, card=smi)
+    print("large solvers, solve_ba_cg: " + json.dumps(r_ba), flush=True)
+    check(final < 0.5 * init, f"solve_ba_cg: cost {init} -> {final}")
+    check(err1 < err0, f"solve_ba_cg: camera error {err0} -> {err1}")
+    check(bool(torch.isfinite(poses).all() & torch.isfinite(points).all()),
+          "solve_ba_cg: non-finite result")
+    del prob, poses, points
+
+    # ---- solve_pose_graph_cg: a ring of 2048 keyframes, one loop edge ----
+    n = 2048
+    gt_p, poses0, ei, ej, meas = synthetic.make_ring_graph(n, drift=0.4)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    pg = pose_graph.PoseGraphProblem(
+        poses=t(poses0), fixed=torch.arange(n, device=dev) == 0,
+        edge_i=t(ei), edge_j=t(ej), edge_meas=t(meas),
+        edge_valid=torch.ones(n, dtype=torch.bool, device=dev))
+    check(n > closure.POSE_GRAPH_DENSE_MAX, "ring under the dense limit")
+    solve = lambda: pose_graph_cg.solve_pose_graph_cg(  # noqa: E731
+        pg, max_iters=20, cg_iters=30)
+    solve()
+    (opt, stats), dt, peak = timed(solve)
+    init, final = float(stats["initial_cost"]), float(stats["final_cost"])
+    end0 = float(np.linalg.norm(poses0[-1, :3] - gt_p[-1, :3]))
+    end1 = float(torch.linalg.norm(opt[-1, :3] - t(gt_p[-1, :3])))
+    r_pg = dict(keyframes=n, edges=n, initial_cost=init, final_cost=final,
+                lm_iterations=20, cg_iterations=600,
+                ms_per_lm_iteration=1e3 * dt / 20, seconds=dt,
+                last_pose_error_m=[end0, end1], peak_memory_bytes=peak,
+                card=smi)
+    print("large solvers, solve_pose_graph_cg: " + json.dumps(r_pg),
+          flush=True)
+    check(final < 0.2 * init, f"solve_pose_graph_cg: cost {init} -> {final}")
+    check(end1 < 0.5 * end0, f"solve_pose_graph_cg: last pose error {end0} "
+                             f"-> {end1}")
+
+    # ---- run_global_ba above BLOCKED_MAX_PAIRS keyframe pairs ----
+    n_pairs = 160
+    kfa, lma, gt_k = synthetic.make_orbit_state(
+        n_pairs=n_pairs, pts_per_kf=64, obs_per_pt=6)
+    kf = interop.from_arrays(KeyframeState, kfa, dev)
+    lm = interop.from_arrays(LandmarkState, lma, dev)
+    check(ba_global._pow2(n_pairs) > ba_global.BLOCKED_MAX_PAIRS,
+          "orbit state under the blocked solver's limit")
+    intr = t(synthetic.ORBIT_PINHOLE)
+    solve = lambda: ba_global.run_global_ba(  # noqa: E731
+        kf, lm, intr, intr, cam_name="pinhole", huber=2.0, max_iters=5,
+        cg_iters=10)
+    solve()
+    (kf2, lm2, stats), dt, peak = timed(solve)
+    init, final = float(stats["initial_cost"]), float(stats["final_cost"])
+    gt_l = t(gt_k[:, 0, :3])
+    err0 = float(torch.linalg.norm(kf.pose_l[:n_pairs, :3] - gt_l,
+                                   dim=-1).mean())
+    err1 = float(torch.linalg.norm(kf2.pose_l[:n_pairs, :3] - gt_l,
+                                   dim=-1).mean())
+    r_gba = dict(keyframes=n_pairs, landmarks=int(lm.next_slot),
+                 initial_cost=init, final_cost=final,
+                 lm_iterations=stats["iterations"],
+                 cg_iterations=stats.get("cg_iterations"),
+                 ms_per_lm_iteration=1e3 * dt / max(stats["iterations"], 1),
+                 seconds=dt, mean_camera_error_m=[err0, err1],
+                 peak_memory_bytes=peak, card=smi)
+    print("large solvers, run_global_ba (CG branch): " + json.dumps(r_gba),
+          flush=True)
+    check("cg_iterations" in stats, "run_global_ba did not take the "
+                                    "matrix-free branch")
+    check(final < 0.5 * init, f"run_global_ba: cost {init} -> {final}")
+    check(bool(torch.isfinite(kf2.pose_l).all()
+               & torch.isfinite(lm2.pos).all()),
+          "run_global_ba: non-finite result")
+    return dict(ba_cg=r_ba, pose_graph_cg=r_pg, gba_cg=r_gba)
+
+
+def sweep_faithful_seeds(dev, seeds, smi):
+    """``python3 chip_smoke.py --faithful-seeds 0 1 2 ...``: the faithful
+    driver on phase 7's world over RANSAC seeds, deterministic, the full
+    arm beside its control (no loop closure, no relocalization); for the
+    first seed also loop closure alone, relocalization alone and the full
+    arm without the global BA. One JSON line per run: the keyframe ATE
+    every 24 frames, at each closure and at the end, the loops with their
+    frames, the global BA's costs, relocalizations, lost frames."""
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.pipeline.slam import SlamSystem
+    from vslam_tpu_torch.synthetic_pano import generate_pano_loop
+
+    n_frames = 288
+    seq = generate_pano_loop(num_frames=n_frames, width=752, height=480,
+                             revolutions=1.75, seed=2)
+    images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
+              for l, r in seq.images]
+    voc = train_vocabulary(seq.images, range(0, n_frames, n_frames // 24),
+                           300, dev)
+
+    def run(arm, seed, loop, reloc, gba=True):
+        cfg = full_slam_config(SlamConfig, True)
+        cfg.enable_loop_closure = loop
+        cfg.enable_gba_after_loop = loop and gba
+        cfg.enable_relocalization = reloc
+        cfg.seed = seed
+        slam = SlamSystem(seq.calib, cfg, device=dev)
+        slam.set_vocabulary(voc)
+        ate_at, loops, gba_costs = {}, [], []
+        t0 = time.perf_counter()
+        for f in range(n_frames):
+            info = slam.process_frame(*images[f])
+            if slam._pending_gba is not None:
+                st = slam._pending_gba.stats
+                gba_costs.append([float(st["initial_cost"]),
+                                  float(st["final_cost"])])
+            if info.get("loops_closed"):
+                cur, cand = slam.loop_edges[-1]
+                loops.append(dict(
+                    frame=f, against=int(slam.kf.frame_id[cand]),
+                    kf_ate_after_m=round(keyframe_ate(slam, seq), 3)))
+            if f % 24 == 23:
+                ate_at[f] = round(keyframe_ate(slam, seq), 3)
+        r = dict(arm=arm, seed=seed, kf_ate_m=keyframe_ate(slam, seq),
+                 keyframes=int(slam.kf.valid.sum()), loops=loops,
+                 gba_merges=slam.gba_merges, gba_costs=gba_costs,
+                 reloc_ok=sum(ok for _, ok in slam.reloc_events),
+                 reloc_attempts=len(slam.reloc_events),
+                 lost_frames=[i["frame"] for i in slam.stats if not i["ok"]],
+                 kf_ate_at_frame_m=ate_at,
+                 seconds=time.perf_counter() - t0, card=smi)
+        print("faithful seeds: " + json.dumps(r), flush=True)
+        return r["kf_ate_m"]
+
+    ratios = []
+    with deterministic():
+        for i, seed in enumerate(seeds):
+            slam = run("slam", seed, True, True)
+            control = run("control", seed, False, False)
+            ratios.append(slam / control)
+            if i == 0:
+                run("loop closure only", seed, True, False)
+                run("relocalization only", seed, False, True)
+                run("slam without global BA", seed, True, True, gba=False)
+    print("faithful seeds: SLAM / control keyframe ATE "
+          + json.dumps([round(x, 3) for x in ratios]) + f"; within 1.15 x in "
+          f"{sum(x <= 1.15 for x in ratios)} of {len(ratios)}", flush=True)
+    print(smi)
 
 
 def main():
@@ -862,13 +1250,35 @@ def main():
     lib = cuda_hamming.build()
     print(f"built {lib} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if sys.argv[1:2] == ["--faithful-seeds"]:
+        sweep_faithful_seeds(dev, [int(x) for x in sys.argv[2:]] or [0], smi)
+        return
+
+    t_start = time.perf_counter()
+
+    def lap(name):
+        print(f"phase {name} done at {time.perf_counter() - t_start:.1f} s "
+              f"after the build", flush=True)
+
     kernels = phase_kernels(dev)
+    lap("3 (kernels)")
     launches, _ = phase_main_path(dev)
+    lap("4 (VO main path)")
     phase_small_world(dev)
+    lap("5 (small world)")
     with deterministic():
         drift_launches, _ = phase_injected_drift(dev)
-        slam_launches, _ = phase_full_slam(dev)
-    check("jax" not in sys.modules, "the port imported jax")
+        lap("6 (injected drift)")
+        slam_launches, _, seq, voc = phase_full_slam(dev)
+        lap("7 (full SLAM)")
+        cli_runs = phase_cli(dev, seq, voc)
+        lap("8 (command line)")
+    del seq, voc
+    phase_large_solvers(dev, smi)
+    lap("9 (large-map solvers)")
+    check("jax" not in sys.modules
+          and not any(m.split(".")[0] == "vslam_tpu" for m in sys.modules),
+          "the port imported jax or the JAX package")
 
     source = "vslam_tpu_torch/csrc/hamming_top2.cu"
     replaces = {"landmark_top2": "vslam_tpu/ops/pallas_hamming.py:76",
@@ -877,7 +1287,10 @@ def main():
         dict(name=name, route="cuda", source=source, replaces=replaces[name],
              launches=launches[name],
              launches_injected_drift=drift_launches[name],
-             launches_full_slam=slam_launches[name], **kernels[name])
+             launches_full_slam=slam_launches[name],
+             launches_cli_slam=cli_runs["slam"]["launches"][name],
+             launches_cli_streaming=cli_runs["streaming"]["launches"][name],
+             **kernels[name])
         for name in ("landmark_top2", "hamming_top2")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

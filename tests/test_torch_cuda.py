@@ -11,7 +11,10 @@ and all-invalid shapes and on tie-heavy inputs
 CPU parity tests share), take strided inputs and refuse misaligned ones,
 and the dispatchers must route CUDA tensors through the kernels, the
 full-SLAM slice's call sites included (loop matching, the closure's
-guided matching at P = 1024).
+guided matching at P = 1024) and the faithful driver's (``SlamSystem``'s
+tracking and stereo matching, the closed-form closure's harvest). The
+matrix-free bundle adjustment on the card equals its CPU run (costs within
+1e-3 relative, poses within 1e-3).
 """
 
 import numpy as np
@@ -280,3 +283,89 @@ def test_closure_landmark_matching_launches_kernel(vo_map, step):
         assert [int(x) for x in got] == [int(x) for x in want]
         assert int(want[0]) > 30
     assert cuda_hamming.LAUNCHES["landmark_top2"] == before + 1
+
+
+def test_horn_closure_harvest_launches_kernel(vo_map):
+    """``compute_sim3_horn`` on the card: the descriptor top-2 twice per
+    source keyframe in its harvest, and with the same draws the CPU run's
+    decision and correction (1e-4)."""
+    from vslam_tpu_torch.loop import closure
+
+    (kf, lm, _), (kf_d, lm_d, _) = vo_map
+    cur = int(kf.next_slot) - 1
+    cand, nbrs = 0, list(range(1, cur))
+    gen = torch.Generator().manual_seed(3)
+    idx = torch.stack([torch.randperm(16, generator=gen)[:3]
+                       for _ in range(64)])
+    want = closure.compute_sim3_horn(kf, lm, cur, cand, nbrs,
+                                     sample_idx=idx)
+    before = dict(cuda_hamming.LAUNCHES)
+    got = closure.compute_sim3_horn(kf_d, lm_d, cur, cand, nbrs,
+                                    sample_idx=idx.to(kf_d.pose_l.device))
+    assert cuda_hamming.LAUNCHES["hamming_top2"] == (
+        before["hamming_top2"] + 2 * (1 + len(nbrs)))
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == before["landmark_top2"]
+    assert got[0] == want[0]
+    assert abs(got[2] - want[2]) < 1e-4
+    if want[0]:
+        assert torch.allclose(got[1].cpu(), want[1], atol=1e-4)
+
+
+def test_faithful_driver_launches_kernels(dev):
+    """``SlamSystem`` on the card: the landmark top-2 once per frame, the
+    descriptor top-2 twice per keyframe, and the CPU run's outcome (the
+    bootstrap keyframe's counts exactly: no random draw precedes them)."""
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.eval import ate
+    from vslam_tpu_torch.pipeline.slam import SlamSystem
+
+    seq = synthetic.generate(num_frames=24, num_points=500, seed=3)
+
+    def run(device):
+        cfg = SlamConfig(
+            num_features=400, ransac_hypotheses=128, max_landmarks=8192,
+            max_keyframes=64, max_inview_landmarks=512, window_cams=24,
+            window_points=2048, window_obs=6144, ba_max_iters=10,
+            enable_relocalization=False, enable_loop_closure=False,
+            new_kf_min_inliers=60)
+        slam = SlamSystem(seq.calib, cfg, device=device)
+        infos = [slam.process_frame(*pair) for pair in seq.images]
+        fids, pos, _ = slam.keyframe_trajectory()
+        return infos, float(ate.align_svd(pos, seq.poses[fids, :3])[2])
+
+    before = dict(cuda_hamming.LAUNCHES)
+    infos_d, ate_d = run(dev)
+    n_kf = sum(i["kind"] == "keyframe" for i in infos_d)
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == (
+        before["landmark_top2"] + 24)
+    assert cuda_hamming.LAUNCHES["hamming_top2"] == (
+        before["hamming_top2"] + 2 * n_kf)
+    infos_c, ate_c = run("cpu")
+    for key in ("kind", "stereo_inliers", "new_landmarks", "matches"):
+        assert infos_d[0][key] == infos_c[0][key], key
+    assert all(i["ok"] for i in infos_d[1:])
+    assert ate_d < 0.08 and ate_c < 0.08
+
+
+def test_solve_ba_cg_on_the_card_equals_cpu(dev):
+    from vslam_tpu_torch import interop
+    from vslam_tpu_torch.solvers import ba, ba_cg
+
+    arrays, _, _ = synthetic.make_big_problem(n_pairs=64, pts_per_kf=8,
+                                              obs_per_pt=8)
+    kw = dict(cam_name="pinhole", huber=2.0, max_iters=3, cg_iters=8)
+    out = {}
+    for where in ("cpu", dev):
+        prob = interop.from_arrays(ba.BAProblem, arrays, where)
+        poses, points, stats = ba_cg.solve_ba_cg(prob, **kw)
+        assert poses.device.type == torch.device(where).type
+        out[str(where)] = (poses.cpu(), points.cpu(),
+                           float(stats["initial_cost"]),
+                           float(stats["final_cost"]), stats["iterations"])
+    c, d = out["cpu"], out[str(dev)]
+    assert c[4] == d[4] >= 1
+    assert abs(c[2] - d[2]) <= 1e-3 * c[2]
+    assert abs(c[3] - d[3]) <= 1e-3 * c[3]
+    assert d[3] < 0.5 * d[2]
+    assert torch.allclose(c[0], d[0], atol=1e-3)
+    assert torch.allclose(c[1], d[1], atol=2e-3)

@@ -239,15 +239,23 @@ def test_gba_dispatch_and_skip_merge_match_jax(jax_maps):
                                rtol=1e-4)
 
 
-def test_unported_global_ba_branches_raise(jax_maps):
+def test_unported_global_ba_branches_raise(jax_maps, monkeypatch):
+    """A sharded solve still raises and names ROADMAP; a map above
+    ``BLOCKED_MAX_PAIRS`` keyframe pairs (patched low here) no longer does:
+    it takes the matrix-free branch."""
     kt, lt, i0t, i1t = port_state(jax_maps[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgba.dispatch_global_ba(kt, lt, i0t, i1t, cam_name="pinhole",
                                 mesh=object())
-    big = kt.replace(next_slot=torch.tensor(200, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgba.run_global_ba(big, lt, i0t, i1t, cam_name="pinhole")
     cfg = gba_config()
     cfg.gba_mesh_devices = 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgba.gba_mesh(cfg)
+    monkeypatch.setattr(tgba, "BLOCKED_MAX_PAIRS", 2)
+    kf2, lm2, stats = tgba.run_global_ba(kt, lt, i0t, i1t,
+                                         cam_name="pinhole", max_iters=4,
+                                         cg_iters=10)
+    assert stats["cg_iterations"] == 10 * stats["iterations"] > 0
+    assert float(stats["final_cost"]) <= float(stats["initial_cost"])
+    assert bool(torch.isfinite(kf2.pose_l).all()
+                & torch.isfinite(lm2.pos).all())

@@ -426,10 +426,26 @@ def test_corr_apply_and_loop_closure_equal_jax(banked):
                                np.asarray(true_poses[CUR]), atol=1e-3)
 
 
-def test_unported_closure_branches_raise(banked):
-    kf, lm, _, stored, covis = banked
+def test_unported_closure_branches_raise(banked, monkeypatch):
+    """No closure branch is left unported: above ``POSE_GRAPH_DENSE_MAX``
+    keyframes (patched low here) ``loop_closure`` solves the pose graph with
+    the matrix-free ``pose_graph_cg`` and lands where the dense solver
+    does (poses within 2e-3)."""
+    kf, lm, true_poses, stored, covis = banked
     kt, ltt = to_port(kf, lm)
-    big = kt.replace(next_slot=torch.tensor(1025, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tclosure.loop_closure(big, ltt, CUR, CAND, tt(stored[0]), covis,
-                              tt(stored[0]))
+    sim3 = tt(true_sim3(stored, true_poses))
+    T_0_1 = tt(np.asarray(jlie.se3_exp(jnp.asarray([0.11, 0, 0, 0, 0, 0.0]))))
+    kw = dict(essential_threshold=30, huber=1.0, max_iters=20)
+    kd, _, sd = tclosure.loop_closure(kt, ltt, CUR, CAND, sim3, covis, T_0_1,
+                                      **kw)
+    assert "history" not in sd
+    monkeypatch.setattr(tclosure, "POSE_GRAPH_DENSE_MAX", 4)
+    kc, lc, sc = tclosure.loop_closure(kt, ltt, CUR, CAND, sim3, covis,
+                                       T_0_1, **kw)
+    assert len(sc["history"]) == 20      # the CG solver's record
+    assert float(sc["final_cost"]) < 0.05 * float(sc["initial_cost"])
+    np.testing.assert_allclose(kc.pose_l.numpy(), kd.pose_l.numpy(),
+                               atol=2e-3)
+    np.testing.assert_allclose(kc.pose_l.numpy()[CUR],
+                               np.asarray(true_poses[CUR]), atol=2e-3)
+    assert bool(torch.isfinite(lc.pos).all())

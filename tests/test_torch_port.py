@@ -3,14 +3,18 @@
 - ``vslam_tpu_torch`` imports neither JAX nor ``vslam_tpu`` (the machine
   with the card has no JAX);
 - the host modules it copies (config, calibration I/O, ATE, the BRIEF
-  pattern, the synthetic world generators, the loop detector and the
-  vocabulary's numpy part) match their originals;
+  pattern, the synthetic world generators, the loop detector, the
+  vocabulary's numpy part with its DBoW2 text writer, the map and dataset
+  readers, the stage timers and the command line's tuner) match their
+  originals;
 - state constructors, compaction and the tie-stable top-k match the JAX
   package's; device selection refuses a missing card.
 """
 
+import ast
 import dataclasses
 import inspect
+import os
 import subprocess
 import sys
 import textwrap
@@ -21,17 +25,22 @@ import pytest
 import torch
 from jax import lax
 
+from vslam_tpu import cli as jcli
 from vslam_tpu import config as jconfig
 from vslam_tpu import synthetic as jsyn
 from vslam_tpu import synthetic_pano as jpano
 from vslam_tpu.core import state as jstate
 from vslam_tpu.eval import ate as jate
 from vslam_tpu.io import calib as jcalib
+from vslam_tpu.io import euroc as jeuroc
+from vslam_tpu.io import map_io as jmap_io
 from vslam_tpu.loop import detector as jdetector
 from vslam_tpu.loop import vocabulary as jvocab
 from vslam_tpu.ops import compact as jcompact
 from vslam_tpu.ops import pattern as jpattern
+from vslam_tpu.utils import metrics as jmetrics
 import vslam_tpu_torch
+from vslam_tpu_torch import cli as tcli
 from vslam_tpu_torch import config as tconfig
 from vslam_tpu_torch import interop
 from vslam_tpu_torch import synthetic as tsyn
@@ -39,23 +48,30 @@ from vslam_tpu_torch import synthetic_pano as tpano
 from vslam_tpu_torch.core import state as tstate
 from vslam_tpu_torch.eval import ate as tate
 from vslam_tpu_torch.io import calib as tcalib
+from vslam_tpu_torch.io import euroc as teuroc
+from vslam_tpu_torch.io import map_io as tmap_io
 from vslam_tpu_torch.loop import detector as tdetector
 from vslam_tpu_torch.loop import vocabulary as tvocab
 from vslam_tpu_torch.ops import compact as tcompact
 from vslam_tpu_torch.ops import pattern as tpattern
+from vslam_tpu_torch.utils import metrics as tmetrics
 
 
 def test_port_imports_no_jax():
+    """Every module of the package, imported in a fresh interpreter, leaves
+    neither JAX nor the JAX package loaded."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         import vslam_tpu_torch
-        from vslam_tpu_torch import interop, synthetic
-        from vslam_tpu_torch.ops import cuda_hamming
-        from vslam_tpu_torch.pipeline import ba_global, streaming
-        from vslam_tpu_torch.loop import (closure, detector, matching,
-                                          relocalize, vocabulary)
-        from vslam_tpu_torch.solvers import ba_blocked, pose_graph
-        from vslam_tpu_torch import synthetic_pano
+        names = [m.name for m in pkgutil.walk_packages(
+            vslam_tpu_torch.__path__, "vslam_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert len(names) > 40, names
+        for must in ("vslam_tpu_torch.cli", "vslam_tpu_torch.pipeline.slam",
+                     "vslam_tpu_torch.utils.checkpoint",
+                     "vslam_tpu_torch.solvers.ba_cg"):
+            assert must in names, must
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "vslam_tpu"))
         assert not bad, bad
@@ -64,6 +80,31 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _imported_roots(path):
+    """Top-level names a source file imports, wherever the statement is."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_file_of_the_port_names_jax():
+    """The same, read from the sources: imports inside functions count."""
+    pkg = os.path.dirname(vslam_tpu_torch.__file__)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")]
+    files.append(os.path.join(os.path.dirname(pkg), "chip_smoke.py"))
+    assert len(files) > 45
+    for path in files:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "vslam_tpu"}
+        assert not bad, (path, bad)
 
 
 def test_precision_pins():
@@ -220,3 +261,32 @@ def test_synthetic_vocab_and_transform_equal():
     for x, y in zip(tvocab.transform_np(vt, descs),
                     jvocab.transform_np(vj, descs)):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("port,orig,names", [
+    (tmap_io, jmap_io, ("_pose_dict", "_vec3_dict", "save_map", "load_map")),
+    (teuroc, jeuroc, ("EurocSequence", "_read_timestamp_csv", "_read_gt_csv",
+                      "load_sequence", "load_sample_dir")),
+    (tmetrics, jmetrics, ("StageTimer", "MetricsLogger")),
+    (tvocab, jvocab, ("_vocab_from_flat", "save_dbow2_text")),
+    (tcli, jcli, ("_make_tuner",)),
+], ids=["map_io", "euroc", "metrics", "vocabulary_text", "cli_tuner"])
+def test_host_copies_of_the_io_slice_are_the_originals(port, orig, names):
+    for name in names:
+        assert inspect.getsource(getattr(port, name)) == \
+            inspect.getsource(getattr(orig, name)), name
+
+
+def test_cli_flags_are_the_reference_s_minus_the_unported():
+    """The port's parser accepts the reference's flags except those that
+    need unported modules (the HTML viewer, the overlays), plus --device."""
+    def flags(mod):
+        src = inspect.getsource(mod.main)
+        tree = ast.parse(textwrap.dedent(src))
+        return {n.args[0].value for n in ast.walk(tree)
+                if isinstance(n, ast.Call)
+                and getattr(n.func, "attr", "") == "add_argument"}
+
+    assert flags(jcli) - flags(tcli) == {"--viz-html", "--overlay-every",
+                                         "--overlay-dir"}
+    assert flags(tcli) - flags(jcli) == {"--device"}

@@ -1,7 +1,7 @@
 """The port's StreamingSLAM driver on the CPU.
 
-- it requires a vocabulary, runs on the card unless told otherwise, and
-  refuses the unported closed-form Sim(3) solver;
+- it requires a vocabulary, runs on the card unless told otherwise,
+  accepts both Sim(3) solvers and refuses a sharded global BA;
 - VO mode ignores the place-recognition state (the port of
   tests/test_streaming_slam.py::test_streaming_vo_ignores_bow_state);
 - a short run on synthetic.generate(num_frames=24, num_points=500, seed=3)
@@ -90,9 +90,9 @@ def test_streaming_slam_requires_vocabulary(world):
 def test_streaming_slam_unported_options_raise(world):
     seq, voc = world
     cfg = slam_config()
-    cfg.sim3_solver = "horn"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingSLAM(seq.calib, cfg, voc, device="cpu")
+    cfg.sim3_solver = "horn"    # the closed-form solver is ported
+    assert StreamingSLAM(seq.calib, cfg, voc,
+                         device="cpu").cfg.sim3_solver == "horn"
     cfg = slam_config()
     cfg.gba_mesh_devices = 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -61,6 +61,14 @@ class KeyframeState(TensorState):
     next_slot: torch.Tensor   # [] int32
 
 
+@dataclasses.dataclass
+class TrackState(TensorState):
+    current_pose: torch.Tensor  # [7] T_w_c (left cam)
+    last_pose: torch.Tensor     # [7]
+    vel: torch.Tensor           # [7] constant-velocity model
+    tracking_ok: torch.Tensor   # [] bool
+
+
 def init_landmarks(L: int, M: int = 24, M2: int = 48, B: int = 4,
                    dtype=torch.float32, device=None) -> LandmarkState:
     i32 = dict(dtype=torch.int32, device=device)
@@ -99,4 +107,13 @@ def init_keyframes(K: int, N: int, dtype=torch.float32,
         kp_valid=torch.zeros((K, 2, N), dtype=torch.bool, device=device),
         map_points=torch.full((K, N), -1, **i32),
         next_slot=torch.zeros((), **i32),
+    )
+
+
+def init_track(dtype=torch.float32, device=None) -> TrackState:
+    return TrackState(
+        current_pose=lie.identity_pose(dtype, device),
+        last_pose=lie.identity_pose(dtype, device),
+        vel=lie.identity_pose(dtype, device),
+        tracking_ok=torch.zeros((), dtype=torch.bool, device=device),
     )

@@ -1,7 +1,7 @@
 """Loop closure: SE(3) loop correction, geometric verification,
 essential-graph optimization and the map update.
 
-Port of ``vslam_tpu/loop/closure.py``, the PnP path:
+Port of ``vslam_tpu/loop/closure.py``:
 
 - ``compute_sim3`` (sim3.h:228-359): harvest 2D-3D correspondences
   between the current keyframe's features and the map points of the loop
@@ -10,6 +10,9 @@ Port of ``vslam_tpu/loop/closure.py``, the PnP path:
   an arbiter; the correction is ``sim3 = T_w_cand^-1 * T_w_cur_measured``
   with the ||log||_1 <= 5 sanity gate and bounded retries (stereo fixes
   scale, hence SE3);
+- ``compute_sim3_horn`` (sim3.h:48-141): the closed-form alternative from
+  3D-3D landmark pairs (``geometry/sim3.ransac_sim3``), with a gate on the
+  recovered scale (``sim3_solver="horn"``);
 - ``verify_loop``: the candidate side's landmarks projected through the
   proposed correction, counted by gated descriptor matches;
 - ``loop_closure`` (loop_closure_utils.h:398-622): the live group moved
@@ -24,10 +27,9 @@ through ``matching.match_vs_keyframes`` (the descriptor top-2 kernel).
 The RANSAC draws of ``compute_sim3`` come from a ``torch.Generator``, or
 from an injected ``sampler(valid, num_hypotheses) -> [H, 6]`` indices
 (torch cannot reproduce ``jax.random``; tests inject the reference's
-draws). The closed-form Sim(3) solver (``compute_sim3_horn``,
-``sim3_solver="horn"``) is not ported, and ``StreamingSLAM`` refuses that
-setting; the matrix-free pose graph above 1024 keyframes is not ported
-either, and ``loop_closure`` raises there.
+draws); ``compute_sim3_horn`` takes ``sample_idx`` [H, 3] the same way.
+Above ``POSE_GRAPH_DENSE_MAX`` keyframes ``loop_closure`` solves the pose
+graph with the matrix-free ``solvers/pose_graph_cg``.
 
 Masked writes select their entries first (the reference's
 ``mode="drop"`` scatters point masked entries out of bounds, which on the
@@ -48,11 +50,12 @@ from ..geometry import lie
 from ..ops import describe as describe_ops
 from ..ops import hamming
 from ..ops.compact import compact_indices
-from ..solvers import pnp, pose_graph
+from ..geometry import sim3 as sim3_mod
+from ..solvers import pnp, pose_graph, pose_graph_cg
 from . import matching
 
-# dense pose-graph LM up to this many keyframes; the reference switches
-# to matrix-free CG above it (closure.py:643-651), which is not ported
+# dense pose-graph LM up to this many keyframes (rounded up to a power of
+# two, the reference's shape bucket); matrix-free CG above
 POSE_GRAPH_DENSE_MAX = 1024
 
 
@@ -103,16 +106,18 @@ def _edge_measurements(poses_pre, ei, ej, sim3, e_loop: int):
 
 
 def _batched_matches(kf: KeyframeState, cur_bits, cur_valid,
-                     source_slots: Sequence[int], cur_slot: int):
+                     source_slots: Sequence[int], cur_slot: int, extra=None):
     """Match the current descriptors against every source keyframe.
-    Returns (slots, m_all [S, N], mp_all [S, N]) as host numpy."""
+    Returns (slots, m_all [S, N], mp_all [S, N], extra) as host numpy;
+    ``extra`` is an optional tensor fetched along."""
+    extra_h = extra.cpu().numpy() if extra is not None else None
     slots = [int(s) for s in source_slots if int(s) != int(cur_slot)]
     if not slots:
-        return [], None, None
+        return [], None, None, extra_h
     m = matching.match_vs_keyframes(cur_bits, cur_valid, kf, slots, 0)
     mp = kf.map_points[torch.as_tensor(slots, dtype=torch.long,
                                        device=kf.map_points.device)]
-    return slots, m.cpu().numpy(), mp.cpu().numpy()
+    return slots, m.cpu().numpy(), mp.cpu().numpy(), extra_h
 
 
 def harvest_correspondences(
@@ -127,8 +132,8 @@ def harvest_correspondences(
     (sim3.h:244-301 / tracking.h:283-338): match the current descriptors
     against each source keyframe, map matched source features to landmarks
     through its map_points, dedupe by landmark and by current feature."""
-    slots, m_all, mp_all = _batched_matches(kf, cur_bits, cur_valid,
-                                            source_slots, cur_slot)
+    slots, m_all, mp_all, _ = _batched_matches(kf, cur_bits, cur_valid,
+                                               source_slots, cur_slot)
     used_landmarks: Set[int] = set()
     used_features: Set[int] = set()
     lms: List[int] = []
@@ -218,6 +223,87 @@ def compute_sim3(
         if float(torch.sum(torch.abs(lie.se3_log(sim3)[:3]))) <= 5.0:
             return True, sim3
     return False, None
+
+
+def compute_sim3_horn(
+    kf: KeyframeState,
+    lm: LandmarkState,
+    cur_slot: int,
+    cand_slot: int,
+    cand_neighbors: Sequence[int],
+    generator: torch.Generator = None,
+    threshold_3d: float = 0.3,
+    num_hypotheses: int = 128,
+    max_scale_log: float = 0.1,
+    sample_idx=None,
+):
+    """Closed-form Sim(3) loop correction from 3D-3D correspondences
+    (compute_sim3_1, sim3.h:48-141): matched features give pairs
+    (current-side landmark, candidate-side landmark), the same physical
+    point in the drifted and the old map frame, and a Horn / RANSAC
+    alignment recovers the similarity between them. Stereo observes scale,
+    so a recovered scale far from 1 marks a bad closure; the accepted
+    correction is the SE3 loop edge
+    ``sim3 = T_w_cand^-1 * (S o T_w_cur_drift)``.
+
+    Returns (ok, sim3 [7], scale). ``sample_idx`` [H, 3] overrides the
+    draws from ``generator``.
+    """
+    dev = kf.pose_l.device
+    cur_bits = describe_ops.unpack_bits(kf.desc[cur_slot, 0])
+    cur_valid = kf.kp_valid[cur_slot, 0]
+
+    slots, m_all, mp_all, mp_cur = _batched_matches(
+        kf, cur_bits, cur_valid, (cand_slot, *cand_neighbors), cur_slot,
+        extra=kf.map_points[cur_slot])
+    src_ids: List[int] = []
+    dst_ids: List[int] = []
+    used_dst: Set[int] = set()
+    for si in range(len(slots)):
+        # m[f] = current-feature index matched by candidate feature f
+        m, mp_s = m_all[si], mp_all[si]
+        for f in np.nonzero((m >= 0) & (mp_s >= 0))[0]:
+            sid = int(mp_cur[int(m[f])])  # current side (drifted world)
+            tid = int(mp_s[f])            # candidate side (old world)
+            if sid < 0 or tid == sid or tid in used_dst:
+                continue
+            used_dst.add(tid)
+            src_ids.append(sid)
+            dst_ids.append(tid)
+    if len(src_ids) < 5:
+        return False, None, 0.0
+
+    n = len(src_ids)
+    cap = _pow2(n)
+    src = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
+    dst = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
+    src[:n] = lm.pos[torch.as_tensor(src_ids, device=dev)]
+    dst[:n] = lm.pos[torch.as_tensor(dst_ids, device=dev)]
+    valid = torch.arange(cap, device=dev) < n
+
+    S, _inl, _n_inl, ok = sim3_mod.ransac_sim3(
+        src, dst, valid, threshold=threshold_3d,
+        num_hypotheses=num_hypotheses, generator=generator,
+        sample_idx=sample_idx)
+
+    # corrected current pose: S o T_w_cur (rigid action of the similarity)
+    T_cur = kf.pose_l[cur_slot]
+    R_new = S.R @ lie.quat_to_matrix(T_cur[3:7])
+    t_new = S.s * (S.R @ T_cur[:3]) + S.t
+    T_cur_corr = torch.cat([t_new, lie.matrix_to_quat(R_new)]).to(
+        torch.float32)
+    sim3 = lie.se3_mul(lie.se3_inv(kf.pose_l[cand_slot]), T_cur_corr)
+    trans_l1 = torch.sum(torch.abs(lie.se3_log(sim3)[:3]))
+    # one host read decides
+    ok_h, scale, tl = torch.stack(
+        [ok.to(torch.float32), S.s.to(torch.float32), trans_l1]).tolist()
+    if not ok_h:
+        return False, None, 0.0
+    if not scale > 0 or abs(np.log(scale)) > max_scale_log:
+        return False, None, scale  # scale drift in stereo = bad closure
+    if not tl <= 5.0:  # same sanity gate as the PnP path (sim3.h:340)
+        return False, None, scale
+    return True, sim3, scale
 
 
 def _source_landmarks(kf: KeyframeState, lm: LandmarkState, kf_src_mask):
@@ -398,11 +484,6 @@ def loop_closure(
     t_stats = {}
     t0 = time.perf_counter()
     n_kf = int(kf.next_slot)
-    if n_kf > POSE_GRAPH_DENSE_MAX:
-        raise NotImplementedError(
-            f"{n_kf} keyframes: the pose graph above {POSE_GRAPH_DENSE_MAX} "
-            "keyframes is the matrix-free pose_graph_cg, not ported yet "
-            "(see ROADMAP.md Queue 1)")
     poses_pre = kf.pose_l
     dev = poses_pre.device
     t_stats["t_snapshot_s"] = time.perf_counter() - t0
@@ -465,8 +546,13 @@ def loop_closure(
         edge_valid=torch.ones(E, dtype=torch.bool, device=dev))
     t_stats["t_graph_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    opt_poses, stats = pose_graph.solve_pose_graph(prob, huber=huber,
-                                                   max_iters=max_iters)
+    if _pow2(n_kf) <= POSE_GRAPH_DENSE_MAX:
+        opt_poses, stats = pose_graph.solve_pose_graph(
+            prob, huber=huber, max_iters=max_iters)
+    else:
+        # the dense (6K)^2 assembly stops scaling; matrix-free CG is O(K+E)
+        opt_poses, stats = pose_graph_cg.solve_pose_graph_cg(
+            prob, huber=huber, max_iters=max_iters)
     t_stats["t_solve_s"] = time.perf_counter() - t0
 
     # scatter back + stereo + landmark updates (rows >= n_kf keep theirs)

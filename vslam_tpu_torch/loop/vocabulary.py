@@ -11,8 +11,9 @@ tree descent (TemplatedVocabulary.h:1127-1193), in PyTorch, and
 
 The vocabulary is the system's only trained parameter set;
 ``from_arrays`` carries one across from the reference (any object or
-mapping with the ``Vocabulary`` field names). The DBoW2 text I/O of the
-reference (``load_dbow2_text``, ``save_dbow2_text``) is not ported yet.
+mapping with the ``Vocabulary`` field names); ``load_dbow2_text`` and
+``save_dbow2_text`` read and write DBoW2's text format (the numpy parser
+of the reference; ``_vocab_from_flat`` and the writer are copies).
 """
 
 from __future__ import annotations
@@ -334,3 +335,104 @@ def l1_score(v1: dict, v2: dict) -> float:
         if b is not None:
             s += abs(a) + abs(b) - abs(a - b)
     return 0.5 * s
+
+
+# ---------------------------------------------------------------------------
+# DBoW2 text format I/O (TemplatedVocabulary.h:1338-1419)
+# ---------------------------------------------------------------------------
+
+def load_dbow2_text(path: str) -> Vocabulary:
+    """Parse DBoW2's ORBvoc.txt-style format into dense arrays.
+
+    Line 1: "k L scoring_id weighting_id". Then one line per non-root node:
+    "parent_id is_leaf b0 .. b31 weight" with 32 descriptor bytes.
+    """
+    with open(path) as f:
+        header = f.readline().split()
+        k, depth = int(header[0]), int(header[1])
+        parents, leaf_flags, descs, wts = [], [], [], []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            parents.append(int(parts[0]))
+            leaf_flags.append(int(parts[1]) != 0)
+            descs.append([int(x) for x in parts[2:34]])
+            wts.append(float(parts[34]))
+    return _vocab_from_flat(
+        k, depth,
+        np.asarray(parents, np.int32),
+        np.asarray(leaf_flags, bool),
+        np.asarray(descs, np.uint8).reshape(len(parents), 32),
+        np.asarray(wts, np.float64),
+    )
+
+
+def _vocab_from_flat(k, depth, parents, leaf_flags, desc_bytes, weights):
+    """Assemble a Vocabulary from per-node flat arrays (root implicit)."""
+    n = len(parents) + 1  # + root
+    node_parent = np.concatenate([[-1], parents + 0]).astype(np.int32)
+    # nodes are listed in DBoW2 creation order; ids are 1..n-1
+    shifts = np.arange(8, dtype=np.uint8)
+    bits = ((desc_bytes[:, :, None] >> shifts) & 1).reshape(len(parents), 256)
+    node_desc = np.concatenate([np.zeros((1, 256), np.uint8), bits])
+    is_leaf = np.concatenate([[False], leaf_flags])
+    # children table, vectorized (ORBvoc has ~1.1M nodes — python loops
+    # here dominated load time): group node ids by parent via a stable
+    # sort, rank within each group, scatter into the [n, k] table.
+    ch = np.full((n, k), -1, np.int32)
+    if n > 1:
+        ids = np.arange(1, n, dtype=np.int64)
+        par = node_parent[1:].astype(np.int64)
+        order = np.argsort(par, kind="stable")
+        sp = par[order]
+        sid = ids[order]
+        first = np.zeros(len(sp), bool)
+        first[0] = True
+        first[1:] = sp[1:] != sp[:-1]
+        group_start = np.where(first, np.arange(len(sp)), 0)
+        group_start = np.maximum.accumulate(group_start)
+        rank = np.arange(len(sp)) - group_start
+        keep = rank < k
+        ch[sp[keep], rank[keep]] = sid[keep]
+    word_of_node = np.full(n, -1, np.int32)
+    leaf_ids = np.nonzero(is_leaf)[0]
+    word_of_node[leaf_ids] = np.arange(len(leaf_ids))
+    # levels: one vectorized parent-hop per pass propagates one level
+    # (node ids are in creation order, so parents precede children)
+    level = np.zeros(n, np.int32)
+    for _ in range(int(depth) + 1):
+        level[1:] = level[node_parent[1:]] + 1
+    w = np.zeros(len(leaf_ids), np.float32)
+    leaf_weights = np.concatenate([[0.0], weights])[leaf_ids]
+    w[:] = leaf_weights
+    return Vocabulary(
+        k=k, depth=depth, node_desc=node_desc, children=ch, is_leaf=is_leaf,
+        word_of_node=word_of_node, node_of_word=leaf_ids.astype(np.int32),
+        weights=w, parent=node_parent, level=level,
+    )
+
+
+def save_dbow2_text(voc: Vocabulary, path: str) -> None:
+    """Write the DBoW2 text format (inverse of load_dbow2_text).
+
+    Vectorized (byte packing + row formatting in bulk) so ORBvoc-scale
+    trees (~1.1M nodes) write in seconds, not minutes.
+    """
+    n = len(voc.parent)
+    by_all = (voc.node_desc.reshape(n, 32, 8).astype(np.uint16)
+              * (1 << np.arange(8, dtype=np.uint16))).sum(-1)   # [n, 32]
+    w_all = np.where(voc.is_leaf & (voc.word_of_node >= 0),
+                     voc.weights[np.clip(voc.word_of_node, 0, None)], 0.0)
+    leaf_int = voc.is_leaf.astype(np.int8)
+    with open(path, "w") as f:
+        f.write(f"{voc.k} {voc.depth} 0 0\n")
+        chunk = 65536
+        for lo in range(1, n, chunk):
+            hi = min(lo + chunk, n)
+            rows = [
+                f"{voc.parent[i]} {leaf_int[i]} "
+                + " ".join(map(str, by_all[i])) + f" {w_all[i]}"
+                for i in range(lo, hi)
+            ]
+            f.write("\n".join(rows) + "\n")

@@ -1,19 +1,20 @@
 """Global bundle adjustment over all keyframes and lifetime observations.
 
-Port of ``vslam_tpu/pipeline/ba_global.py``, the blocked branch: the
-analogue of the reference's ``global_bundle_adjustment`` + ``global_ba``
-driver (loop_closure_utils.h:672-748, slam.cpp:1741-1789). Every valid
-keyframe (both cameras), every landmark, the lifetime ``all_*``
-observation tables, intrinsics frozen, the first keyframe pair fixed,
-solved by ``solvers/ba_blocked.py``.
+Port of ``vslam_tpu/pipeline/ba_global.py``: the analogue of the
+reference's ``global_bundle_adjustment`` + ``global_ba`` driver
+(loop_closure_utils.h:672-748, slam.cpp:1741-1789). Every valid keyframe
+(both cameras), every landmark, the lifetime ``all_*`` observation tables,
+intrinsics frozen, the first keyframe pair fixed.
 
 The problem keeps the reference's shape buckets: K2 = the keyframe count
 rounded up to a power of two (at least 16) and Lw = the landmark count
 rounded up to a power of two (at least 256); rows past the live ones are
-fixed or invalid. The blocked solver serves K2 <= ``BLOCKED_MAX_PAIRS``
-without a device mesh, which is every problem of a map of at most 128
-keyframes. Larger maps (the matrix-free ``ba_cg`` solver) and a sharded
-solve (``parallel/sharded_ba``) are not ported: they raise.
+fixed or invalid. The blocked Schur solver (``solvers/ba_blocked.py``)
+serves K2 <= ``BLOCKED_MAX_PAIRS``, which is every problem of a map of at
+most 128 keyframes; larger maps take the flat observation list of
+``_build`` (capped at O observations, lowest landmark rows first) and the
+matrix-free ``solvers/ba_cg.py``. A sharded solve over a device mesh
+(``parallel/sharded_ba``) is not ported: it raises.
 
 Asynchronous GBA. The reference dispatches the solve on a snapshot, keeps
 tracking and skip-merges later (slam.cpp:1778-1788, :1410-1447); with its
@@ -30,10 +31,12 @@ import torch
 
 from ..core.state import KeyframeState, LandmarkState, TensorState
 from ..geometry import lie
-from ..solvers import ba_blocked
+from ..ops.compact import compact_indices
+from ..solvers import ba_blocked, ba_cg
+from ..solvers.ba import BAProblem
 
-# above this many keyframe pairs the reference leaves the dense blocked
-# solver for matrix-free LM-CG (not ported)
+# above this many keyframe pairs the dense 6K x 6K reduced camera system of
+# the blocked solver gives way to matrix-free LM-CG
 BLOCKED_MAX_PAIRS = 128
 
 
@@ -46,8 +49,8 @@ def _pow2(n: int, lo: int = 16) -> int:
 
 def _unported(what: str):
     raise NotImplementedError(
-        f"{what}: the matrix-free global BA (solvers/ba_cg.py) and the "
-        "sharded solve (parallel/sharded_ba.py) are not ported yet; see "
+        f"{what}: the global BA sharded over a device mesh "
+        "(parallel/sharded_ba.py, parallel/mesh.py) is not ported yet; see "
         "ROADMAP.md Queue 1")
 
 
@@ -68,9 +71,79 @@ def _problem_size(kf: KeyframeState, lm: LandmarkState, mesh):
     Lw = _pow2(n_lm, lo=256)
     if mesh is not None:
         _unported("a sharded global BA")
-    if K2 > BLOCKED_MAX_PAIRS:
-        _unported(f"{n_kf} keyframes (K2={K2} > {BLOCKED_MAX_PAIRS})")
     return n_kf, n_lm, K2, Lw
+
+
+def _cameras(kf: KeyframeState, intr0, intr1, K2: int):
+    """(poses [2*K2, 7], fixed [2*K2], intr [2*K2, 8]) of the K2 keyframe
+    pairs; the first pair (the gauge, slam.cpp:1781) and rows past the live
+    keyframes are fixed."""
+    K = kf.frame_id.shape[0]
+    dtype = kf.pose_l.dtype
+    kf_ids = torch.arange(K2, device=kf.pose_l.device)
+    sel_kf = torch.clamp(kf_ids, 0, K - 1)
+    kf_ok = (kf_ids < kf.next_slot) & kf.valid[sel_kf]
+    poses = torch.stack([kf.pose_l[sel_kf], kf.pose_r[sel_kf]],
+                        1).reshape(2 * K2, 7)
+    fixed = (~kf_ok | (kf_ids == 0)).repeat_interleave(2)
+    intr = torch.stack([intr0.expand(K2, 8), intr1.expand(K2, 8)],
+                       1).reshape(2 * K2, 8).to(dtype)
+    return poses, fixed, intr
+
+
+def _build(kf: KeyframeState, lm: LandmarkState, intr0, intr1, K2: int,
+           Lw: int, O: int) -> BAProblem:
+    """Global problem as a flat list of at most O observations (the first O
+    valid entries of the [Lw, M2] lifetime tables in row order)."""
+    K = kf.frame_id.shape[0]
+    dev = kf.pose_l.device
+    dtype = kf.pose_l.dtype
+    poses, fixed, intr = _cameras(kf, intr0, intr1, K2)
+
+    L = lm.pos.shape[0]
+    lm_ids = torch.arange(Lw, device=dev)
+    sel_lm = torch.clamp(lm_ids, 0, L - 1)
+    lm_ok = (lm_ids < lm.next_slot) & lm.valid[sel_lm]
+
+    M2 = lm.all_kf.shape[1]
+    okf = lm.all_kf[sel_lm].long()         # [Lw, M2]
+    ocam = lm.all_cam[sel_lm].long()
+    ofeat = lm.all_feat[sel_lm].long()
+    ovalid = (okf >= 0) & (okf < K2) & lm_ok[:, None]
+    opoint = lm_ids[:, None].expand(Lw, M2)
+
+    flat_valid = ovalid.reshape(-1)
+    oidx, o_sel_ok = compact_indices(flat_valid, O)
+    oidx = torch.clamp(oidx, 0, flat_valid.shape[0] - 1).long()
+    o_valid = flat_valid[oidx] & o_sel_ok
+    o_kf = torch.clamp(okf.reshape(-1)[oidx], min=0)
+    o_cam = ocam.reshape(-1)[oidx]
+    o_feat = ofeat.reshape(-1)[oidx]
+    o_point = opoint.reshape(-1)[oidx]
+    o_w = torch.where(o_valid, 2 * o_kf + o_cam, torch.zeros_like(o_kf))
+    o_uv = kf.corners[torch.clamp(o_kf, max=K - 1), o_cam, o_feat]
+    return BAProblem(
+        poses=poses, pose_fixed=fixed, intr=intr,
+        points=lm.pos[sel_lm], point_valid=lm_ok,
+        obs_cam=o_w.to(torch.int32), obs_point=o_point.to(torch.int32),
+        obs_uv=o_uv.to(dtype), obs_valid=o_valid)
+
+
+def _solve(kf: KeyframeState, lm: LandmarkState, intr0, intr1, n_lm: int,
+           K2: int, Lw: int, cam_name: str, huber, max_iters: int,
+           cg_iters: int):
+    """Build and solve: blocked Schur up to BLOCKED_MAX_PAIRS keyframe
+    pairs, matrix-free LM-CG above. Returns (poses, points, stats)."""
+    if K2 <= BLOCKED_MAX_PAIRS:
+        prob = _build_blocked(kf, lm, intr0, intr1, K2=K2, Lw=Lw)
+        return ba_blocked.solve_ba_blocked(
+            prob, cam_name=cam_name, huber=huber, max_iters=max_iters)
+    M2 = int(lm.all_kf.shape[1])
+    O = _pow2(min(n_lm * 6, Lw * M2), lo=1024)
+    prob = _build(kf, lm, intr0, intr1, K2=K2, Lw=Lw, O=O)
+    return ba_cg.solve_ba_cg_stepped(
+        prob, cam_name=cam_name, huber=huber, max_iters=max_iters,
+        cg_iters=cg_iters)
 
 
 def _build_blocked(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
@@ -80,16 +153,7 @@ def _build_blocked(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
     K = kf.frame_id.shape[0]
     dev = kf.pose_l.device
     dtype = kf.pose_l.dtype
-    kf_ids = torch.arange(K2, device=dev)
-    sel_kf = torch.clamp(kf_ids, 0, K - 1)
-    kf_ok = (kf_ids < kf.next_slot) & kf.valid[sel_kf]
-
-    poses = torch.stack([kf.pose_l[sel_kf], kf.pose_r[sel_kf]],
-                        1).reshape(2 * K2, 7)
-    # gauge: first keyframe pair fixed (slam.cpp:1781)
-    fixed = (~kf_ok | (kf_ids == 0)).repeat_interleave(2)
-    intr = torch.stack([intr0.expand(K2, 8), intr1.expand(K2, 8)],
-                       1).reshape(2 * K2, 8).to(dtype)
+    poses, fixed, intr = _cameras(kf, intr0, intr1, K2)
 
     L = lm.pos.shape[0]
     lm_ids = torch.arange(Lw, device=dev)
@@ -155,12 +219,11 @@ def _live(kf: KeyframeState, lm: LandmarkState, K2: int, Lw: int, n_kf,
 def run_global_ba(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
                   cam_name: str = "ds", huber: float = 1.0,
                   max_iters: int = 15, cg_iters: int = 25, mesh=None):
-    """Build + solve + merge. Returns (kf, lm, stats). ``cg_iters`` belongs
-    to the unported CG solver and is unused."""
+    """Build + solve + merge. Returns (kf, lm, stats). ``cg_iters`` is the
+    CG solver's inner iteration count (maps above BLOCKED_MAX_PAIRS)."""
     n_kf, n_lm, K2, Lw = _problem_size(kf, lm, mesh)
-    prob = _build_blocked(kf, lm, intr0, intr1, K2=K2, Lw=Lw)
-    poses, points, stats = ba_blocked.solve_ba_blocked(
-        prob, cam_name=cam_name, huber=huber, max_iters=max_iters)
+    poses, points, stats = _solve(kf, lm, intr0, intr1, n_lm, K2, Lw,
+                                  cam_name, huber, max_iters, cg_iters)
     kf_ok, lm_ok, _, _ = _live(kf, lm, K2, Lw, n_kf, n_lm)
     kf, lm = _merge(kf, lm, poses, points, kf_ok, lm_ok)
     return kf, lm, stats
@@ -190,11 +253,10 @@ def dispatch_global_ba(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
     """Snapshot the map and solve its global BA (see the module doc for
     why the solve runs here); merge later with ``merge_global_ba``."""
     n_kf, n_lm, K2, Lw = _problem_size(kf, lm, mesh)
-    prob = _build_blocked(kf, lm, intr0, intr1, K2=K2, Lw=Lw)
     snap_kf = kf.active.clone()
     snap_lm = lm.active.clone()
-    poses, points, stats = ba_blocked.solve_ba_blocked(
-        prob, cam_name=cam_name, huber=huber, max_iters=max_iters)
+    poses, points, stats = _solve(kf, lm, intr0, intr1, n_lm, K2, Lw,
+                                  cam_name, huber, max_iters, cg_iters)
     return PendingGBA(poses=poses, points=points, n_kf=n_kf, n_lm=n_lm,
                       snap_active_kf=snap_kf, snap_active_lm=snap_lm,
                       stats=stats)

@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..config import DEVICE_TUNABLE, SlamConfig
+from ..config import (DEVICE_TUNABLE, DEVICE_TUNE_TRANSFORM, HOST_TUNABLE,
+                      TUNE_INDEX, SlamConfig)
 from ..core import state as state_mod
 from ..core.state import KeyframeState, LandmarkState, TensorState
 from ..frontend.features import extract_features
@@ -156,6 +157,29 @@ class StreamingVO:
         self.tune = {name: float(np.float32(v))
                      for name, v in zip(DEVICE_TUNABLE, cfg.tune_vector())}
         self.generator.manual_seed(cfg.seed)
+
+    def set_param(self, name: str, value) -> None:
+        """Change a runtime parameter mid-run (pangolin::Var analogue).
+
+        ``DEVICE_TUNABLE`` names update the gate scalars the step reads
+        (rounded to float32, as the reference carries them) from the next
+        frame on; ``HOST_TUNABLE`` names set the config field, which the
+        host-side orchestration (polls, loop closure, relocalization) reads
+        per call. Anything else sizes buffers and raises ``ValueError``.
+        """
+        if name in TUNE_INDEX:
+            xf = DEVICE_TUNE_TRANSFORM.get(name, lambda v: v)
+            self.tune[name] = float(np.float32(xf(float(value))))
+            setattr(self.cfg, name, value)  # host-side readers see it too
+            if name == "pnp_inlier_thresh_px":
+                self.pnp_threshold = xf(float(value))
+        elif name in HOST_TUNABLE:
+            setattr(self.cfg, name, value)
+        else:
+            raise ValueError(
+                f"{name!r} is not live-tunable (it sizes the state's "
+                f"buffers); rebuild the driver with a new SlamConfig. "
+                f"Tunable: {sorted(TUNE_INDEX) + sorted(HOST_TUNABLE)}")
 
     def _image(self, img):
         if not torch.is_tensor(img):
@@ -369,11 +393,6 @@ class StreamingSLAM(StreamingVO):
             raise ValueError("StreamingSLAM requires a pretrained "
                              "vocabulary (loop.vocabulary.train)")
         cfg = config or SlamConfig()
-        if cfg.sim3_solver != "pnp":
-            raise NotImplementedError(
-                f"sim3_solver={cfg.sim3_solver!r}: the closed-form Sim(3) "
-                "solver (compute_sim3_horn, geometry/sim3.py) is not ported "
-                "yet; see ROADMAP.md Queue 1")
         super().__init__(calib, cfg, max_frames, vocabulary=vocabulary,
                          store_features=cfg.enable_relocalization,
                          device=device)
@@ -585,10 +604,20 @@ class StreamingSLAM(StreamingVO):
             st = self.state
             nbrs = sorted(self.covis_host.get(cand, {}))
             with _T("sim3"):
-                ok, sim3 = closure_mod.compute_sim3(
-                    st.kf, st.lm, slot, cand, nbrs, st.intr0, self.cam_name,
-                    self.pnp_threshold, self.host_generator,
-                    num_hypotheses=cfg.ransac_hypotheses)
+                if cfg.sim3_solver == "horn":
+                    # 3D-3D alignment of the drifted and the old landmark
+                    # clouds (sim3.h:48-141): well-conditioned on
+                    # depth-uniform scenes, where the PnP path has a
+                    # lateral-translation / yaw ambiguity
+                    ok, sim3, _scale = closure_mod.compute_sim3_horn(
+                        st.kf, st.lm, slot, cand, nbrs, self.host_generator,
+                        num_hypotheses=cfg.ransac_hypotheses)
+                else:
+                    ok, sim3 = closure_mod.compute_sim3(
+                        st.kf, st.lm, slot, cand, nbrs, st.intr0,
+                        self.cam_name, self.pnp_threshold,
+                        self.host_generator,
+                        num_hypotheses=cfg.ransac_hypotheses)
             if not ok:
                 self.loop_stats["sim3_failed"] += 1
                 continue

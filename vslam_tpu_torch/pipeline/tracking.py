@@ -57,14 +57,17 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
                 num_hypotheses: int = 256, min_matches=10,
                 quality_level=0.01, min_distance: int = 8,
                 rotate_features: bool = True, num_octaves: int = 1,
-                generator: torch.Generator = None) -> TrackResult:
+                generator: torch.Generator = None,
+                feats: Features = None) -> TrackResult:
     """Track one left image against the map; ``generator`` drives the
-    RANSAC draws."""
-    feats = extract_features(img_l, num_features=num_features,
-                             quality_level=quality_level,
-                             min_distance=min_distance,
-                             rotate_features=rotate_features,
-                             num_octaves=num_octaves)
+    RANSAC draws. ``feats`` overrides the built-in extraction with
+    pre-computed Features of the left image (a learned frontend's hook)."""
+    if feats is None:
+        feats = extract_features(img_l, num_features=num_features,
+                                 quality_level=quality_level,
+                                 min_distance=min_distance,
+                                 rotate_features=rotate_features,
+                                 num_octaves=num_octaves)
 
     # ---- project + compact in-view landmarks (newest-first) ----
     proj, in_view = project_landmarks(lm, predicted_pose, cam_name, intr0,
@@ -92,15 +95,41 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
     T_w_c = torch.where(enough, T_ransac, predicted_pose)
     inlier = inlier & enough & m_ok
 
-    # ---- motion-model gate ----
-    se3_vel = lie.se3_log(lie.se3_mul(lie.se3_inv(gate_pose), T_w_c))
-    err = torch.sum(torch.abs(se3_vel[:3] - lie.se3_log(vel)[:3]))
-    # a non-finite pose/err must read as a FAILED gate
-    err = torch.where(torch.isfinite(err), err,
-                      torch.full_like(err, float("inf")))
-
     return TrackResult(
         feats=feats, match_lm=match_lm, inlier=inlier,
         had_candidate=had_cand, T_w_c=T_w_c, num_matches=num_matches,
         num_inliers=torch.where(enough, num_inl, torch.zeros_like(num_inl)),
-        motion_err=err, pnp_ok=enough)
+        motion_err=_motion_err(gate_pose, T_w_c, vel), pnp_ok=enough)
+
+
+def _motion_err(gate_pose, T_w_c, vel):
+    """The motion-model gate statistic (tracking.h:131-133); a non-finite
+    pose must read as a FAILED gate, so it gives inf."""
+    se3_vel = lie.se3_log(lie.se3_mul(lie.se3_inv(gate_pose), T_w_c))
+    err = torch.sum(torch.abs(se3_vel[:3] - lie.se3_log(vel)[:3]))
+    return torch.where(torch.isfinite(err), err,
+                       torch.full_like(err, float("inf")))
+
+
+def retry_localize(res: TrackResult, lm: LandmarkState, predicted_pose,
+                   gate_pose, vel, intr0, cam_name: str = "ds",
+                   pnp_threshold=0.000018, num_hypotheses: int = 256,
+                   min_matches=10, generator: torch.Generator = None,
+                   sample_idx=None) -> TrackResult:
+    """Redraw the RANSAC localization on an existing match set: the
+    reference's track_camera retry loop (tracking.h:90-160) re-runs only the
+    randomized solver when the motion gate rejects the pose. ``sample_idx``
+    [H, 6] overrides the draws from ``generator``."""
+    bearings = cam_models.unproject(cam_name, intr0, res.feats.corners)
+    m_ok = res.match_lm >= 0
+    points = lm.pos[torch.clamp(res.match_lm, min=0)]
+    T_ransac, inlier, num_inl, pnp_valid = pnp.ransac_pnp(
+        points, bearings, m_ok, pnp_threshold,
+        num_hypotheses=num_hypotheses, generator=generator,
+        sample_idx=sample_idx)
+    enough = (res.num_matches >= min_matches) & pnp_valid
+    T_w_c = torch.where(enough, T_ransac, predicted_pose)
+    return dataclasses.replace(
+        res, T_w_c=T_w_c, inlier=inlier & enough & m_ok,
+        num_inliers=torch.where(enough, num_inl, torch.zeros_like(num_inl)),
+        motion_err=_motion_err(gate_pose, T_w_c, vel), pnp_ok=enough)

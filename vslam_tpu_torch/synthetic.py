@@ -405,3 +405,223 @@ def landmark_ties(case: str, seed: int = 11):
         bank[37:] = np.resize(bank[:37], (p - 37, nb, 256))
     return (kp, kv, kxy.astype(np.float32), bank, bv,
             lxy.astype(np.float32), lv, 20.0)
+
+
+# ---------------------------------------------------------------------------
+# Large-map solver problems (tests/test_ba_scale.py's orbit, in numpy) and
+# datasets on disk
+# ---------------------------------------------------------------------------
+
+ORBIT_PINHOLE = np.array([400.0, 400.0, 376.0, 240.0, 0, 0, 0, 0], np.float32)
+
+
+def _orbit(n_pairs, pts_per_kf, obs_per_pt, noise, perturb, seed):
+    """Camera pairs around a large circle looking outward, landmarks on the
+    outer wall, each seen by ``obs_per_pt // 2`` consecutive pairs (both
+    cameras). Returns ground truth, perturbed estimates and observations as
+    numpy arrays."""
+    import torch
+
+    from .geometry import lie
+
+    rng = np.random.RandomState(seed)
+    K = 2 * n_pairs
+    R_orbit, R_wall = 50.0, 65.0
+
+    th = 2 * np.pi * np.arange(n_pairs) / n_pairs
+    pos = np.stack([R_orbit * np.sin(th), np.zeros(n_pairs),
+                    -R_orbit * np.cos(th)], -1)
+    # yaw so +z looks outward; right cams offset along the local tangent
+    q = np.stack([np.zeros(n_pairs), np.sin(th / 2), np.zeros(n_pairs),
+                  np.cos(th / 2)], -1)
+    poses_l = np.concatenate([pos, q], -1).astype(np.float32)
+    tang = np.stack([np.cos(th), np.zeros(n_pairs), np.sin(th)], -1)
+    poses_r = poses_l.copy()
+    poses_r[:, :3] += 0.2 * tang
+    poses_gt = np.stack([poses_l, poses_r], 1).reshape(K, 7)
+
+    L = n_pairs * pts_per_kf
+    lth = np.repeat(th, pts_per_kf) + rng.uniform(-0.02, 0.02, L)
+    ly = rng.uniform(-6, 6, L)
+    points_gt = np.stack([R_wall * np.sin(lth), ly,
+                          -R_wall * np.cos(lth)], -1).astype(np.float32)
+
+    base_pair = np.repeat(np.arange(n_pairs), pts_per_kf)
+    offs = np.arange(obs_per_pt // 2) - obs_per_pt // 4
+    obs_pair = (base_pair[:, None] + offs[None, :]) % n_pairs   # [L, o/2]
+    obs_cam = np.stack([2 * obs_pair, 2 * obs_pair + 1], -1).reshape(L, -1)
+    obs_point = np.broadcast_to(np.arange(L)[:, None], obs_cam.shape)
+    obs_cam = obs_cam.reshape(-1).astype(np.int32)
+    obs_point = obs_point.reshape(-1).astype(np.int32)
+
+    # project the ground truth through the pinhole model
+    T = poses_gt[obs_cam].astype(np.float64)
+    qi = T[:, 3:7] * np.array([-1.0, -1, -1, 1])
+    pc = _quat_rotate_np(qi, points_gt[obs_point] - T[:, :3])
+    uv = _project_pinhole_np(ORBIT_PINHOLE, pc).astype(np.float32)
+    in_img = ((uv[:, 0] > -200) & (uv[:, 0] < 952)
+              & (uv[:, 1] > -200) & (uv[:, 1] < 680) & (pc[:, 2] > 0.1))
+    uv = uv + rng.normal(0, noise, uv.shape).astype(np.float32)
+
+    dpose = rng.normal(0, perturb, (K, 6)).astype(np.float32)
+    dpose[:2] = 0.0
+    poses0 = lie.se3_retract(torch.as_tensor(poses_gt),
+                             torch.as_tensor(dpose)).numpy()
+    points0 = (points_gt
+               + rng.normal(0, 2 * perturb, points_gt.shape)).astype(
+        np.float32)
+    return dict(poses_gt=poses_gt, points_gt=points_gt, poses0=poses0,
+                points0=points0, obs_cam=obs_cam, obs_point=obs_point,
+                obs_pair=obs_pair, uv=uv, in_img=in_img)
+
+
+def make_big_problem(n_pairs=4096, pts_per_kf=16, obs_per_pt=16, noise=0.3,
+                     perturb=0.02, seed=0):
+    """The stretch-scale global BA problem: at the defaults 8192 cameras,
+    65,536 landmarks and 1,048,576 observations. Returns (fields of a
+    ``BAProblem`` as numpy arrays, poses_gt [K, 7], points_gt [L, 3])."""
+    o = _orbit(n_pairs, pts_per_kf, obs_per_pt, noise, perturb, seed)
+    K, L = 2 * n_pairs, n_pairs * pts_per_kf
+    prob = dict(
+        poses=o["poses0"], pose_fixed=np.arange(K) < 2,
+        intr=np.tile(ORBIT_PINHOLE, (K, 1)), points=o["points0"],
+        point_valid=np.ones(L, bool), obs_cam=o["obs_cam"],
+        obs_point=o["obs_point"], obs_uv=o["uv"], obs_valid=o["in_img"])
+    return prob, o["poses_gt"], o["points_gt"]
+
+
+def make_orbit_state(n_pairs=160, pts_per_kf=8, obs_per_pt=8, noise=0.3,
+                     perturb=0.02, seed=0, capacity_kf=None,
+                     capacity_lm=None, M=24, M2=48):
+    """The same orbit as a keyframe / landmark state, for the global BA
+    above the blocked solver's limit: returns (kf fields, lm fields,
+    poses_gt [n_pairs, 2, 7]) as numpy arrays under the state dataclasses'
+    field names (perturbed poses and points, noisy corners, the lifetime
+    observation tables filled, nothing in the BA window)."""
+    o = _orbit(n_pairs, pts_per_kf, obs_per_pt, noise, perturb, seed)
+    h = obs_per_pt // 2
+    assert 2 * h <= M2
+    K = capacity_kf or n_pairs
+    L = n_pairs * pts_per_kf
+    Lc = capacity_lm or L
+    N = pts_per_kf * h                     # features per keyframe image
+
+    poses0 = o["poses0"].reshape(n_pairs, 2, 7)
+    ident = np.array([0, 0, 0, 0, 0, 0, 1], np.float32)
+    pose_l = np.tile(ident, (K, 1))
+    pose_r = np.tile(ident, (K, 1))
+    pose_l[:n_pairs], pose_r[:n_pairs] = poses0[:, 0], poses0[:, 1]
+
+    # feature index of landmark l in pair obs_pair[l, j]: its rank j times
+    # pts_per_kf plus its index within its base pair
+    lm_ids = np.arange(L)
+    feat = (np.arange(h)[None, :] * pts_per_kf
+            + (lm_ids % pts_per_kf)[:, None])              # [L, h]
+    uv = o["uv"].reshape(L, h, 2, 2)
+    ok = o["in_img"].reshape(L, h, 2)
+    corners = np.full((K, 2, N, 2), -1.0, np.float32)
+    kp_valid = np.zeros((K, 2, N), bool)
+    map_points = np.full((K, N), -1, np.int32)
+    pair = o["obs_pair"]
+    for cam in (0, 1):
+        corners[pair, cam, feat] = uv[:, :, cam]
+        kp_valid[pair, cam, feat] = ok[:, :, cam]
+    map_points[pair, feat] = lm_ids[:, None]
+
+    all_kf = np.full((Lc, M2), -1, np.int32)
+    all_cam = np.zeros((Lc, M2), np.int32)
+    all_feat = np.zeros((Lc, M2), np.int32)
+    all_kf[:L, :2 * h] = np.where(ok, pair[:, :, None], -1).reshape(L, 2 * h)
+    all_cam[:L, :2 * h] = np.tile(np.arange(2), (L, h))
+    all_feat[:L, :2 * h] = np.repeat(feat, 2, axis=1)
+
+    pos = np.zeros((Lc, 3), np.float32)
+    pos[:L] = o["points0"]
+    from_kf = np.full(Lc, -1, np.int32)
+    from_kf[:L] = lm_ids // pts_per_kf
+    anchor = pose_l[np.clip(from_kf, 0, None)]
+    qi = anchor[:, 3:7] * np.array([-1.0, -1, -1, 1], np.float32)
+    pos_c = _quat_rotate_np(qi, pos - anchor[:, :3]).astype(np.float32)
+    valid_kf = np.arange(K) < n_pairs
+    valid_lm = np.arange(Lc) < L
+    kf = dict(
+        frame_id=np.where(valid_kf, np.arange(K), -1).astype(np.int32),
+        pose_l=pose_l, pose_r=pose_r, valid=valid_kf,
+        active=np.zeros(K, bool),
+        parent=np.where(valid_kf, np.arange(K) - 1, -1).astype(np.int32),
+        corners=corners, desc=np.zeros((K, 2, N, 32), np.uint8),
+        kp_valid=kp_valid, map_points=map_points,
+        next_slot=np.asarray(n_pairs, np.int32))
+    lm = dict(
+        pos=pos, pos_c=np.where(valid_lm[:, None], pos_c, 0).astype(
+            np.float32),
+        from_kf=from_kf, valid=valid_lm, active=np.zeros(Lc, bool),
+        obs_kf=np.full((Lc, M), -1, np.int32),
+        obs_cam=np.zeros((Lc, M), np.int32),
+        obs_feat=np.zeros((Lc, M), np.int32),
+        all_kf=all_kf, all_cam=all_cam, all_feat=all_feat,
+        bank_bits=np.zeros((Lc, 4, 256), np.uint8),
+        bank_valid=np.zeros((Lc, 4), bool),
+        bank_next=np.zeros(Lc, np.int32),
+        next_slot=np.asarray(L, np.int32))
+    return kf, lm, o["poses_gt"].reshape(n_pairs, 2, 7)
+
+
+def write_mav0(seq: SyntheticSequence, path: str):
+    """Write a sequence as an EuRoC mav0-layout dataset of binary PGM
+    images: ``cam0/data.csv``, ``cam{0,1}/data/<timestamp>.pgm`` and the
+    ground truth in ``state_groundtruth_estimate0/data.csv`` (one row per
+    frame, the left camera's pose). Returns the timestamps [F] int64."""
+    import os
+
+    from .io import euroc
+
+    for cam in ("cam0", "cam1"):
+        os.makedirs(os.path.join(path, cam, "data"), exist_ok=True)
+    os.makedirs(os.path.join(path, "state_groundtruth_estimate0"),
+                exist_ok=True)
+    ts = np.asarray(seq.timestamps, np.int64)
+    with open(os.path.join(path, "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        for t, (img_l, img_r) in zip(ts, seq.images):
+            name = f"{t}.pgm"
+            f.write(f"{t},{name}\n")
+            euroc.save_pgm(os.path.join(path, "cam0", "data", name), img_l)
+            euroc.save_pgm(os.path.join(path, "cam1", "data", name), img_r)
+    with open(os.path.join(path, "state_groundtruth_estimate0",
+                           "data.csv"), "w") as f:
+        f.write("#timestamp,px,py,pz,qw,qx,qy,qz\n")
+        for t, T in zip(ts, np.asarray(seq.poses, np.float64)):
+            f.write(f"{t}," + ",".join(repr(float(v)) for v in (
+                T[0], T[1], T[2], T[6], T[3], T[4], T[5])) + "\n")
+    return ts
+
+
+def make_ring_graph(n=8, drift=0.05):
+    """A pose graph as tests/test_pose_graph.py's ``make_chain`` builds it:
+    ground truth on a circle, odometry edges with accumulated drift, one
+    exact loop edge from the last pose to the first. Returns (gt [n, 7],
+    poses0 [n, 7], edge_i [n], edge_j [n], edge_meas [n, 6]) as numpy
+    arrays (float32 / int32)."""
+    import torch
+
+    from .geometry import lie
+
+    th = 2 * np.pi * torch.arange(n, dtype=torch.float64) / n
+    zero = torch.zeros_like(th)
+    gt = lie.se3_make(
+        torch.stack([torch.cos(th) * 2, torch.sin(th) * 2, zero], -1),
+        lie.so3_exp_quat(torch.stack([zero, zero, th], -1))).float()
+    noise = lie.se3_exp(torch.full((6,), drift / n) * torch.tensor(
+        [1.0, 1, 0, 0, 0, 1]))
+    rel = lie.se3_mul(lie.se3_mul(lie.se3_inv(gt[:-1]), gt[1:]),
+                      noise.expand(n - 1, 7))
+    poses = [gt[0]]
+    for i in range(n - 1):
+        poses.append(lie.se3_mul(poses[-1], rel[i]))
+    loop = lie.se3_mul(lie.se3_inv(gt[n - 1]), gt[0])
+    meas = lie.se3_log(torch.cat([rel, loop[None]]))
+    edge_i = np.arange(n, dtype=np.int32)
+    edge_j = ((np.arange(n) + 1) % n).astype(np.int32)
+    return (gt.numpy(), torch.stack(poses).numpy(), edge_i, edge_j,
+            meas.numpy())
