@@ -25,6 +25,12 @@ skipped.
    the bytes the function must move at 3.35 TB/s, or its operations at
    the card's peak rate for their type, whichever is larger), and, for
    the landmark top-2, the mean number of gated landmarks per keypoint.
+   The landmark top-2 over a sequence axis (S = 1, 2 and 8 stacked
+   problems at the main path's shape; a sequence without a valid keypoint,
+   one with every landmark inside every gate and one with none; the tie
+   cases in different sequences): exact against the plain version and
+   bit-equal to S launches of the same kernel, one device operation and
+   one count per call; timed at S=8 like the rest.
 4. Runs the port's ``StreamingVO`` at the benchmark's configuration
    (752x480 stereo, 1500 features, 65536 landmarks, 1024 keyframes, 2048
    in-view landmarks, window BA at 24 cameras / 4096 points / 12288
@@ -75,7 +81,30 @@ skipped.
    2048 keyframes with one loop edge (the cost must fall below a fifth),
    and ``run_global_ba`` on a 160-keyframe orbit state, which must take
    the matrix-free branch and lower the cost. Prints ms per LM iteration,
-   CG iterations and peak memory.
+   CG iterations and peak memory. The orbit problem once more with its
+   observations in two shards (``parallel/sharded_ba`` over a mesh that
+   names the card twice): the unsharded solve's iteration count and its
+   cost within 1e-3 relative, ms per LM iteration beside it. And
+   ``solve_ba_schur_intrinsics`` on the problem of
+   tests/test_ba.py::test_ba_joint_intrinsics_recovery (numpy draws) with
+   that test's bars: cost below a tenth, fx and cx of both blocks back
+   within 1.5 px.
+10. The multi-sequence path at the width of ``bench.bench_multiseq``: 8
+   worlds of 116 frames at 752x480 through ``MultiSeqVO`` in lockstep (8
+   warm-up, 108 timed frames, host clock around ``run`` + synchronize),
+   and the single-sequence ``StreamingVO`` on the first world at the same
+   configuration. Prints sequence-frames per second beside the
+   single-sequence frames per second of that world and of phase 4, ms per
+   lockstep frame (median, max, by kind of frame), per sequence the
+   trajectory ATE, frames tracked, keyframes and window BAs, peak memory,
+   the kernels' launches and, from a ``torch.profiler`` window over 16
+   lockstep frames, device operations and device-to-host copies per
+   lockstep frame and the device's idle share. Checks: finite poses; the
+   landmark top-2 launched once per lockstep frame and the descriptor
+   top-2 twice per inserted keyframe; every sequence tracked on at least
+   the single-sequence driver's share of the timed frames less 0.05, with
+   a trajectory ATE of at most max(2 x the single-sequence driver's,
+   0.15 m), at least two keyframes and two window BAs.
 
 ``python3 chip_smoke.py --faithful-seeds 0 1 2 3 4 5`` runs, instead of
 the phases, the faithful driver and its control on phase 7's world over
@@ -236,23 +265,30 @@ def landmark_bound(kp, kv, kxy, bank, bv, lxy, lv, max_dist_2d):
     int32 and a bool per keypoint; it tests the gate (2 subtractions, 2
     products, a sum and a compare in float32) for each valid keypoint and
     valid landmark, and takes a 256-bit distance (512 operations) for each
-    gated pair and valid slot. Returns (bound_ms, bound_by, the mean and
-    the largest number of gated landmarks per valid keypoint)."""
+    gated pair and valid slot. With a leading sequence axis the bytes and
+    operations are the sequences' sums. Returns (bound_ms, bound_by, the
+    mean and the largest number of gated landmarks per valid keypoint)."""
     from vslam_tpu_torch.ops import hamming
 
-    diff = kxy[:, None, :] - lxy[None, :, :]
-    gate = ((torch.sum(diff * diff, dim=-1)
-             < hamming.gate_radius_sq(max_dist_2d))
-            & lv[None, :] & kv[:, None])  # the plain version's 2D gate
-    n, p = gate.shape
-    rows = int(gate.any(dim=1).sum())
-    slots = int((bv & gate.any(dim=0)[:, None]).sum())
-    pair_slots = int((gate.float() @ bv.float()).sum())
-    nbytes = (256 * (rows + slots) + n * (1 + 8) + p * (1 + 8) + bv.numel()
-              + 13 * n)
-    ops_s = (6 * int(kv.sum()) * int(lv.sum()) / F32_OPS_PER_S
-             + 512 * pair_slots / INT8_OPS_PER_S)
-    per_kp = gate.sum(dim=1)[kv].float()
+    if kp.dim() == 2:
+        kp, kv, kxy, bank, bv, lxy, lv = (
+            x[None] for x in (kp, kv, kxy, bank, bv, lxy, lv))
+    nbytes, ops_s, per_kp = 0, 0.0, []
+    for s in range(kp.shape[0]):
+        diff = kxy[s, :, None, :] - lxy[s, None, :, :]
+        gate = ((torch.sum(diff * diff, dim=-1)
+                 < hamming.gate_radius_sq(max_dist_2d))
+                & lv[s, None, :] & kv[s, :, None])  # the plain version's gate
+        n, p = gate.shape
+        rows = int(gate.any(dim=1).sum())
+        slots = int((bv[s] & gate.any(dim=0)[:, None]).sum())
+        pair_slots = int((gate.float() @ bv[s].float()).sum())
+        nbytes += (256 * (rows + slots) + n * (1 + 8) + p * (1 + 8)
+                   + bv[s].numel() + 13 * n)
+        ops_s += (6 * int(kv[s].sum()) * int(lv[s].sum()) / F32_OPS_PER_S
+                  + 512 * pair_slots / INT8_OPS_PER_S)
+        per_kp.append(gate.sum(dim=1)[kv[s]].float())
+    per_kp = torch.cat(per_kp)
     return (*bound(nbytes, ops_s), float(per_kp.mean()), int(per_kp.max()))
 
 
@@ -290,6 +326,13 @@ def landmark_inputs(rng, n, p, nb, dev, lm_frac=0.9, bank_frac=0.7):
     return (t(kp), t(rng.rand(n) < 0.95), t(kxy), t(bank),
             t(rng.rand(p, nb) < bank_frac), t(lxy.astype(np.float32)),
             t(rng.rand(p) < lm_frac), 20.0)
+
+
+def stacked(parts):
+    """Per-sequence landmark inputs as one stack with a leading sequence
+    axis (the radius is shared)."""
+    return tuple(torch.stack(x) for x in list(zip(*parts))[:7]) + (
+        parts[0][7],)
 
 
 def refuses(fn, what):
@@ -406,6 +449,72 @@ def phase_kernels(dev):
         library_ms=None, gated_per_keypoint=per_kp, gated_most=most,
         **timings(cuda_hamming.landmark_top2, hamming.landmark_top2_plain,
                   main, "landmark_top2"))
+    # ---- K1 over a sequence axis (the multi-sequence path) ----
+    # S = 1, 2 and 8 stacked problems at the main path's shape: exact
+    # against the plain version, and bit-equal to S launches of the same
+    # kernel, one per sequence; one count per call whatever S is
+    def check_stack(label, args):
+        before = cuda_hamming.LAUNCHES["landmark_top2"]
+        got = cuda_hamming.landmark_top2(*args)
+        check(cuda_hamming.LAUNCHES["landmark_top2"] == before + 1,
+              f"landmark_top2 over {label} counted more than one launch")
+        e = max_abs_err(got, hamming.landmark_top2_plain(*args))
+        check(e == 0, f"landmark_top2 differs from its plain version over "
+                      f"{label} (max abs err {e})")
+        for q in range(args[0].shape[0]):
+            one = cuda_hamming.landmark_top2(*(a[q] for a in args[:7]),
+                                             args[7])
+            check(all(torch.equal(g[q], o) for g, o in zip(got, one)),
+                  f"landmark_top2 over {label}: sequence {q} differs from "
+                  f"its own launch")
+        return got
+
+    for num_seq in (1, 2, 8):
+        check_stack(f"S={num_seq} N=1500 P=2048 B=4", stacked(
+            [landmark_inputs(rng, 1500, 2048, 4, dev)
+             for _ in range(num_seq)]))
+    # a sequence without a valid keypoint, one with every landmark inside
+    # every gate, one with none inside any
+    odd = [list(landmark_inputs(rng, 64, 700, 4, dev)) for _ in range(3)]
+    odd[0][1] = torch.zeros_like(odd[0][1])
+    odd[1][2], odd[1][5] = every[2], every[5]
+    odd[2][5] = odd[2][5] + 1000.0
+    got = check_stack("S=3 (no keypoint / every landmark gated / none)",
+                      stacked(odd))
+    check(not bool(got[3][0].any())
+          and torch.equal(got[3][1], odd[1][1])  # every valid keypoint
+          and not bool(got[3][2].any()),
+          "landmark_top2 over the odd stack: any_candidate")
+    *ties, r_ties = synthetic.landmark_ties_stacked()
+    check_stack("the tie cases, one per sequence",
+                tuple(torch.as_tensor(x, device=dev) for x in ties)
+                + (r_ties,))
+    multi = stacked([landmark_inputs(rng, 1500, 2048, 4, dev)
+                     for _ in range(8)])
+    refuses(lambda: cuda_hamming.landmark_top2(multi[0][0], *multi[1:]),
+            "landmark_top2 (mixed ranks)")
+    refuses(lambda: cuda_hamming.landmark_top2(misaligned(multi[0]),
+                                               *multi[1:]),
+            "landmark_top2 (stacked)")
+    t = timings(cuda_hamming.landmark_top2, hamming.landmark_top2_plain,
+                multi, "landmark_top2")
+    b_ms, b_by, per_kp, most = landmark_bound(*multi)
+    check(t["device_ops_per_call"] == 1 and t["kernel_only_ms"] == t["ms"],
+          f"landmark_top2 over S=8 ran {t['device_ops_per_call']} device "
+          f"operations per call, not its one kernel")
+    report["landmark_top2"]["multiseq_shape"] = dict(
+        shape="S=8 N=1500 P=2048 B=4", ms=t["ms"], plain_ms=t["plain_ms"],
+        call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
+        bound_ms=b_ms, bound_by=b_by, device_ops_per_call=1,
+        gated_per_keypoint=per_kp)
+    print(f"kernel landmark_top2 at S=8 N=1500 P=2048 B=4: exact, bit-equal "
+          f"to 8 launches; device {t['ms']:.4f} ms in one operation (plain "
+          f"{t['plain_ms']:.4f}); per call with host {t['call_ms']:.4f} ms "
+          f"(plain {t['plain_call_ms']:.4f}); bound {b_ms * 1e3:.3f} us by "
+          f"{b_by}; {per_kp:.2f} gated landmarks per valid keypoint",
+          flush=True)
+    del multi
+
     # each kernel once more at the full-SLAM slice's shapes: K2 at N=M=300
     # as match_vs_keyframes makes it, K1 at N=300, P=1024, B=4 as the
     # closure's guided matching makes it
@@ -499,6 +608,7 @@ def phase_main_path(dev):
         tracked_after_bootstrap=int(res["tracked_ok"][1:].sum()),
         kf_ate_m=float(kf_ate), full_ate_m=float(full_ate),
         median_ms_per_frame=statistics.median(ms),
+        fps=1e3 * n_timed / sum(ms),
         median_ms_tracking_frame=statistics.median(tr_ms) if tr_ms else None,
         median_ms_keyframe=statistics.median(kf_ms) if kf_ms else None,
         max_ms_per_frame=max(ms),
@@ -1051,6 +1161,8 @@ def phase_large_solvers(dev, smi):
     from vslam_tpu_torch import interop, synthetic
     from vslam_tpu_torch.core.state import KeyframeState, LandmarkState
     from vslam_tpu_torch.loop import closure
+    from vslam_tpu_torch.parallel import sharded_ba
+    from vslam_tpu_torch.parallel.mesh import make_mesh
     from vslam_tpu_torch.pipeline import ba_global
     from vslam_tpu_torch.solvers import ba, ba_cg, pose_graph, pose_graph_cg
 
@@ -1091,7 +1203,58 @@ def phase_large_solvers(dev, smi):
     check(err1 < err0, f"solve_ba_cg: camera error {err0} -> {err1}")
     check(bool(torch.isfinite(poses).all() & torch.isfinite(points).all()),
           "solve_ba_cg: non-finite result")
-    del prob, poses, points
+
+    # ---- the same solve with the observations in two shards ----
+    # (parallel/sharded_ba over a mesh that names this card twice: the
+    # shards' partial sums are added on the lead device, so the costs agree
+    # up to the order of float32 sums: 1e-3 relative)
+    mesh = make_mesh(2, devices=[dev, dev])
+    sharded = lambda: sharded_ba.solve_sharded(  # noqa: E731
+        prob, mesh, cam_name="pinhole", huber=2.0, max_iters=3, cg_iters=8)
+    sharded()
+    (poses_s, points_s, stats_s), dt_s, peak_s = timed(sharded)
+    final_s = float(stats_s["final_cost"])
+    r_sh = dict(shards=2, devices=[str(d) for d in mesh.axis_devices()],
+                initial_cost=float(stats_s["initial_cost"]),
+                final_cost=final_s, unsharded_final_cost=final,
+                lm_iterations=stats_s["iterations"],
+                cg_iterations=stats_s["cg_iterations"],
+                ms_per_lm_iteration=1e3 * dt_s / max(stats_s["iterations"], 1),
+                unsharded_ms_per_lm_iteration=r_ba["ms_per_lm_iteration"],
+                max_pose_difference=float((poses_s - poses).abs().max()),
+                peak_memory_bytes=peak_s, card=smi)
+    print("large solvers, solve_sharded: " + json.dumps(r_sh), flush=True)
+    check(stats_s["iterations"] == stats["iterations"]
+          and abs(final_s - final) <= 1e-3 * final,
+          f"solve_sharded: cost {final_s} against the unsharded {final}")
+    check(bool(torch.isfinite(poses_s).all() & torch.isfinite(points_s).all()),
+          "solve_sharded: non-finite result")
+    del prob, poses, points, poses_s, points_s
+
+    # ---- solve_ba_schur_intrinsics: free intrinsics, pulled back to truth --
+    arrays = synthetic.make_intrinsics_problem()
+    iprob = interop.from_arrays(ba.BAProblem, arrays, dev)
+    solve = lambda: ba.solve_ba_schur_intrinsics(  # noqa: E731
+        iprob, cam_name="pinhole", huber=2.0, max_iters=30)
+    solve()
+    (_, _, intr2, stats), dt, peak = timed(solve)
+    init, final = float(stats["initial_cost"]), float(stats["final_cost"])
+    intr2 = intr2.cpu().numpy()
+    r_in = dict(cameras=6, landmarks=120, observations=720,
+                initial_cost=init, final_cost=final,
+                lm_iterations=stats["iterations"],
+                ms_per_lm_iteration=1e3 * dt / max(stats["iterations"], 1),
+                start_fx_fy_cx=arrays["intr"][0, :3].tolist(),
+                fx_fy_cx=intr2[:, :3].tolist(),
+                truth_fx_fy_cx=synthetic.ORBIT_PINHOLE[:3].tolist(), card=smi)
+    print("large solvers, solve_ba_schur_intrinsics: " + json.dumps(r_in),
+          flush=True)
+    # tests/test_ba.py::test_ba_joint_intrinsics_recovery's bars
+    check(final < 0.1 * init, f"solve_ba_schur_intrinsics: cost {init} -> "
+                              f"{final}")
+    check(bool(np.all(np.abs(intr2[:, 0] - 400.0) < 1.5)
+               and np.all(np.abs(intr2[:, 2] - 376.0) < 1.5)),
+          f"solve_ba_schur_intrinsics: intrinsics {intr2[:, :3]}")
 
     # ---- solve_pose_graph_cg: a ring of 2048 keyframes, one loop edge ----
     n = 2048
@@ -1155,7 +1318,188 @@ def phase_large_solvers(dev, smi):
     check(bool(torch.isfinite(kf2.pose_l).all()
                & torch.isfinite(lm2.pos).all()),
           "run_global_ba: non-finite result")
-    return dict(ba_cg=r_ba, pose_graph_cg=r_pg, gba_cg=r_gba)
+    return dict(ba_cg=r_ba, sharded=r_sh, intrinsics=r_in, pose_graph_cg=r_pg,
+                gba_cg=r_gba)
+
+
+# ---------------------------------------------------------------------------
+# the multi-sequence path
+# ---------------------------------------------------------------------------
+
+MULTISEQ_S, MULTISEQ_FRAMES = 8, 116
+# A sequence must stay tracked on at least the single-sequence driver's
+# share of the timed frames (world seed 10, same configuration) less this.
+MULTISEQ_TRACKED_MARGIN = 0.05
+# Trajectory ATE per sequence: at most twice the single-sequence driver's
+# on world seed 10, or the bar of the JAX package's multi-sequence test
+# (tests/test_multiseq.py: 0.15 m), whichever is larger. The lockstep step
+# serves one keyframe request and one window BA per frame, so a sequence
+# waits up to S - 1 frames for either and ends worse than the synchronous
+# single-sequence driver.
+MULTISEQ_ATE_FLOOR_M = 0.15
+PROFILED_LOCKSTEP_FRAMES = 16
+
+
+def multiseq_config(SlamConfig):
+    """bench.bench_multiseq's configuration."""
+    return SlamConfig(
+        enable_relocalization=False, enable_loop_closure=False,
+        max_landmarks=16384, max_keyframes=128, window_points=4096,
+        window_obs=10240)
+
+
+def phase_multiseq(dev, smi, single_vo_fps):
+    """bench.bench_multiseq on the card: 8 worlds of 116 frames at 752x480
+    through ``MultiSeqVO`` in lockstep, 8 warm-up and 108 timed frames, and
+    the single-sequence ``StreamingVO`` on the first world at the same
+    configuration beside it. A second pass gives the time per lockstep
+    frame (a synchronize after each) and, over its last 16 frames, a
+    ``torch.profiler`` window: device operations and device-to-host copies
+    per lockstep frame and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vslam_tpu_torch import synthetic
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.eval import ate
+    from vslam_tpu_torch.parallel.multiseq_runner import MultiSeqVO
+    from vslam_tpu_torch.pipeline.streaming import StreamingVO
+
+    S, F, warm = MULTISEQ_S, MULTISEQ_FRAMES, WARMUP_FRAMES
+    n_timed = F - warm
+    t0 = time.perf_counter()
+    worlds = [synthetic.generate(num_frames=F, num_points=500, width=752,
+                                 height=480, seed=10 + s, speed=3.0)
+              for s in range(S)]
+    packed = MultiSeqVO.pack_frames(
+        [(np.stack([w.images[f][0] for w in worlds]),
+          np.stack([w.images[f][1] for w in worlds])) for f in range(F)])
+    print(f"multi-sequence: {S} worlds of {F} frames 752x480 generated and "
+          f"packed {list(packed.shape)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = multiseq_config(SlamConfig)
+
+    def timed_ate(traj, world):
+        return float(ate.align_svd(traj[warm:F, :3],
+                                   world.poses[warm:F, :3])[2])
+
+    # ---- the single-sequence driver on world seed 10 ----
+    frames1 = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
+               for l, r in worlds[0].images]
+    vo1 = StreamingVO(worlds[0].calib, cfg, max_frames=F, device=dev)
+    vo1.run(frames1[:warm])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vo1.run(frames1[warm:])
+    torch.cuda.synchronize()
+    fps1 = n_timed / (time.perf_counter() - t0)
+    res1 = vo1.results()
+    single = dict(
+        fps=fps1, tracked_share=float(res1["tracked_ok"][warm:].mean()),
+        keyframes=int(res1["is_keyframe"].sum()),
+        ate_m=timed_ate(res1["trajectory"], worlds[0]))
+    del vo1, frames1
+    print("multi-sequence, single-sequence StreamingVO on world seed 10: "
+          + json.dumps(single), flush=True)
+
+    # ---- pass 1: the timed run ----
+    ms = MultiSeqVO(worlds[0].calib, S, cfg, max_frames=F, device=dev)
+    ms.run(packed[:warm])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ms.run(packed[warm:])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = int(torch.cuda.max_memory_allocated())
+    res = ms.results()
+    infos = ms.infos[warm:]
+    inserted_timed = int(res["is_keyframe"][:, warm:].sum())
+    per_seq = [dict(
+        ate_m=timed_ate(res["trajectories"][s], worlds[s]),
+        tracked=int((res["inliers"][s, warm:] > 0).sum()),
+        keyframes=int(res["is_keyframe"][s].sum()),
+        window_bas=sum(i.ba_seq == s for i in ms.infos),
+        landmarks=int(ms.lm.valid[s].sum())) for s in range(S)]
+    finite = bool(np.isfinite(res["trajectories"]).all())
+
+    # ---- pass 2: per-frame times, then a profiled window ----
+    ms.reset()
+    ms.run(packed[:warm])
+    torch.cuda.synchronize()
+    frame_ms, kinds = [], []
+    first_profiled = F - PROFILED_LOCKSTEP_FRAMES
+    for f in range(warm, first_profiled):
+        t = time.perf_counter()
+        ms.process_frames(packed[f, 0], packed[f, 1])
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        info = ms.infos[-1]
+        kinds.append(("kf" if info.fire else "")
+                     + ("+ba" if info.ba_seq is not None else "") or "track")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ms.run(packed[first_profiled:])
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.count > 0]
+    busy_s = sum(e.self_device_time_total for e in events) / 1e6
+    check(busy_s > 0, "multi-sequence: the profiler saw no device time")
+    n_prof = PROFILED_LOCKSTEP_FRAMES
+    profiled = dict(
+        lockstep_frames=n_prof, wall_ms_per_frame=1e3 * wall_prof / n_prof,
+        device_busy_ms_per_frame=1e3 * busy_s / n_prof,
+        device_idle_share=1.0 - busy_s / wall_prof,
+        device_ops_per_frame=sum(e.count for e in events) / n_prof,
+        device_to_host_copies_per_frame=sum(
+            e.count for e in events if "Memcpy DtoH" in e.key) / n_prof,
+        keyframe_branches=sum(i.fire for i in ms.infos[first_profiled:]),
+        window_bas=sum(i.ba_seq is not None
+                       for i in ms.infos[first_profiled:]))
+
+    def median_of(kind):
+        xs = [t for t, k in zip(frame_ms, kinds) if k == kind]
+        return (statistics.median(xs) if xs else None, len(xs))
+
+    summary = dict(
+        sequences=S, lockstep_frames=F, timed_lockstep_frames=n_timed,
+        seq_frames_per_s=S * n_timed / dt, seconds=dt,
+        single_sequence_fps_same_world=fps1,
+        single_sequence_fps_phase_4=single_vo_fps,
+        ratio_to_single_sequence=S * n_timed / dt / fps1,
+        ms_per_lockstep_frame_median=statistics.median(frame_ms),
+        ms_per_lockstep_frame_max=max(frame_ms),
+        ms_median_by_kind={k: median_of(k) for k in sorted(set(kinds))},
+        per_sequence=per_seq, keyframes_inserted_timed=inserted_timed,
+        window_bas_timed=sum(i.ba_seq is not None for i in infos),
+        peak_memory_bytes=peak, launches=launches, profiled=profiled,
+        card=smi)
+    print("multi-sequence: " + json.dumps(summary), flush=True)
+
+    check(finite, "multi-sequence: a trajectory is not finite")
+    check(launches["landmark_top2"] == n_timed,
+          f"multi-sequence: landmark_top2 launched "
+          f"{launches['landmark_top2']} times in {n_timed} lockstep frames")
+    check(launches["hamming_top2"] == 2 * inserted_timed > 0,
+          f"multi-sequence: hamming_top2 launched {launches['hamming_top2']} "
+          f"times for {inserted_timed} keyframes")
+    need = single["tracked_share"] - MULTISEQ_TRACKED_MARGIN
+    ate_bar = max(2.0 * single["ate_m"], MULTISEQ_ATE_FLOOR_M)
+    for s, r in enumerate(per_seq):
+        check(r["tracked"] / n_timed >= need,
+              f"multi-sequence: sequence {s} tracked {r['tracked']} of "
+              f"{n_timed} frames, under {need:.3f}")
+        check(r["ate_m"] <= ate_bar,
+              f"multi-sequence: sequence {s} ATE {r['ate_m']:.4f} m > "
+              f"{ate_bar:.4f} m")
+        check(r["keyframes"] >= 2 and r["window_bas"] >= 2,
+              f"multi-sequence: sequence {s} took {r['keyframes']} keyframes "
+              f"and {r['window_bas']} window BAs")
+    return launches, summary
 
 
 def sweep_faithful_seeds(dev, seeds, smi):
@@ -1262,7 +1606,7 @@ def main():
 
     kernels = phase_kernels(dev)
     lap("3 (kernels)")
-    launches, _ = phase_main_path(dev)
+    launches, vo_summary = phase_main_path(dev)
     lap("4 (VO main path)")
     phase_small_world(dev)
     lap("5 (small world)")
@@ -1275,7 +1619,9 @@ def main():
         lap("8 (command line)")
     del seq, voc
     phase_large_solvers(dev, smi)
-    lap("9 (large-map solvers)")
+    lap("9 (large-map solvers, sharded and free-intrinsics BA)")
+    multiseq_launches, _ = phase_multiseq(dev, smi, vo_summary["fps"])
+    lap("10 (multi-sequence)")
     check("jax" not in sys.modules
           and not any(m.split(".")[0] == "vslam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
@@ -1290,6 +1636,7 @@ def main():
              launches_full_slam=slam_launches[name],
              launches_cli_slam=cli_runs["slam"]["launches"][name],
              launches_cli_streaming=cli_runs["streaming"]["launches"][name],
+             launches_multiseq=multiseq_launches[name],
              **kernels[name])
         for name in ("landmark_top2", "hamming_top2")]}))
     print(smi)

@@ -13,8 +13,11 @@ and the dispatchers must route CUDA tensors through the kernels, the
 full-SLAM slice's call sites included (loop matching, the closure's
 guided matching at P = 1024) and the faithful driver's (``SlamSystem``'s
 tracking and stereo matching, the closed-form closure's harvest). The
-matrix-free bundle adjustment on the card equals its CPU run (costs within
-1e-3 relative, poses within 1e-3).
+landmark top-2 with a leading sequence axis equals its plain version and,
+bit for bit, one launch per sequence; ``MultiSeqVO`` tracks every sequence
+of a lockstep frame in one launch of it. The matrix-free bundle
+adjustment on the card equals its CPU run (costs within 1e-3 relative,
+poses within 1e-3).
 """
 
 import numpy as np
@@ -369,3 +372,113 @@ def test_solve_ba_cg_on_the_card_equals_cpu(dev):
     assert d[3] < 0.5 * d[2]
     assert torch.allclose(c[0], d[0], atol=1e-3)
     assert torch.allclose(c[1], d[1], atol=2e-3)
+
+
+# ---- the sequence axis of the landmark top-2 ----------------------------
+
+def stacked_landmark_inputs(rng, num_seq, n, p, nb, dev):
+    parts = [landmark_inputs(rng, n, p, nb, dev) for _ in range(num_seq)]
+    return tuple(torch.stack(x) for x in list(zip(*parts))[:7]) + (20.0,)
+
+
+@pytest.mark.parametrize("num_seq,n,p,nb", [
+    (1, 300, 700, 4), (2, 129, 513, 3), (8, 1500, 2048, 4), (3, 50, 2049, 8)])
+def test_landmark_top2_sequence_axis_equals_plain_and_unbatched(
+        dev, num_seq, n, p, nb):
+    """One launch over S sequences: exact against the batched plain version
+    and bit-equal to S launches of the same kernel, one per sequence; one
+    count whatever S is. A sequence without a valid keypoint and one whose
+    landmarks all fall outside every gate ride along."""
+    args = list(stacked_landmark_inputs(
+        np.random.RandomState(num_seq + n), num_seq, n, p, nb, dev))
+    if num_seq > 1:
+        args[1][0] = False                  # no valid keypoint
+        args[5][-1] += 5000.0               # every landmark gated out
+    before = cuda_hamming.LAUNCHES["landmark_top2"]
+    got = cuda_hamming.landmark_top2(*args)
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == before + 1
+    assert all(g.shape == (num_seq, n) for g in got)
+    assert_equal(got, hamming.landmark_top2_plain(*args))
+    for s in range(num_seq):
+        one = cuda_hamming.landmark_top2(*(a[s] for a in args[:7]), args[7])
+        assert_equal([g[s] for g in got], one)
+    if num_seq > 1:
+        assert not bool(got[3][0].any()) and not bool(got[3][-1].any())
+        assert int(got[0][0].min()) == 256 and int(got[2][-1].max()) == 0
+
+
+def test_landmark_top2_sequence_axis_ties(dev):
+    """The tie cases in different sequences of one launch."""
+    *arrs, r = synthetic.landmark_ties_stacked()
+    args = tuple(torch.as_tensor(x, device=dev) for x in arrs) + (r,)
+    want = hamming.landmark_top2_plain(*args)
+    assert_equal(cuda_hamming.landmark_top2(*args), want)
+    assert bool((want[0] == want[1]).any())
+    assert bool(((want[0] == 256) & want[3]).any())
+
+
+def test_landmark_top2_sequence_axis_rank_and_alignment(dev):
+    args = stacked_landmark_inputs(np.random.RandomState(2), 2, 48, 300, 4,
+                                   dev)
+    with pytest.raises(ValueError, match="sequence axis"):
+        cuda_hamming.landmark_top2(args[0][0], *args[1:])
+    kp = args[0]
+    shifted = torch.empty(kp.numel() + 1, dtype=torch.uint8,
+                          device=dev)[1:].view(kp.shape)
+    shifted.copy_(kp)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_hamming.landmark_top2(shifted, *args[1:])
+    # a strided stack (every second sequence of a larger one) is copied
+    four = stacked_landmark_inputs(np.random.RandomState(3), 4, 48, 300, 4,
+                                   dev)
+    every_other = tuple(a[::2] for a in four[:7]) + (20.0,)
+    assert not every_other[0].is_contiguous()
+    assert_equal(cuda_hamming.landmark_top2(*every_other),
+                 hamming.landmark_top2_plain(*every_other))
+
+
+def test_multiseq_vo_step_launches_one_kernel_per_lockstep_frame(dev):
+    """``MultiSeqVO`` on the card, three sequences: the landmark top-2 once
+    per lockstep frame whatever S is, the descriptor top-2 twice per
+    inserted keyframe, and the CPU run's outcome (the bootstrap keyframes'
+    landmark counts exactly: no random draw precedes them)."""
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.eval import ate
+    from vslam_tpu_torch.parallel.multiseq_runner import MultiSeqVO
+
+    S, frames = 3, 12
+    worlds = [synthetic.generate(num_frames=24, num_points=500,
+                                 seed=3 + 8 * s) for s in range(S)]
+    lock = [(np.stack([w.images[f][0] for w in worlds]),
+             np.stack([w.images[f][1] for w in worlds]))
+            for f in range(frames)]
+
+    def run(device):
+        cfg = SlamConfig(
+            num_features=300, ransac_hypotheses=64, max_landmarks=2048,
+            max_keyframes=16, max_inview_landmarks=512, window_cams=8,
+            window_points=512, window_obs=2048, ba_max_iters=6,
+            enable_relocalization=False, enable_loop_closure=False,
+            new_kf_min_inliers=60)
+        vo = MultiSeqVO(worlds[0].calib, S, cfg, max_frames=16, device=device)
+        vo.process_frames(*lock[0])
+        first = vo.lm.valid.sum(dim=1).cpu()
+        vo.run(lock[1:])
+        return vo, first
+
+    before = dict(cuda_hamming.LAUNCHES)
+    vo, first = run(dev)
+    res = vo.results()
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == (
+        before["landmark_top2"] + frames)
+    assert cuda_hamming.LAUNCHES["hamming_top2"] == (
+        before["hamming_top2"] + 2 * int(res["is_keyframe"].sum()))
+    assert vo.state.pose.device.type == "cuda"
+    vo_c, first_c = run("cpu")
+    assert torch.equal(first, first_c) and int(first[0]) > 40
+    for s, w in enumerate(worlds):
+        for r in (vo, vo_c):
+            est = r.trajectories[s][:, :3]
+            assert np.isfinite(est).all()
+            assert ate.align_svd(est, w.poses[:frames, :3])[2] < 0.15
+        assert int(vo.lm.valid[s].sum()) > 50

@@ -26,7 +26,8 @@ JAX package's, on the CPU.
   lag and its keyframe gate, window eviction, ``set_params`` /
   ``set_param`` of both drivers, ``debug_checks``, the capacity warnings,
   ``feature_fn``, ``run_global_ba_offline``, and what raises: a missing
-  card, capacity fields, unported settings (naming ROADMAP).
+  card and capacity fields; the settings that once raised as unported
+  (free intrinsics, ``ba_device``, ``gba_mesh_devices``) take their branch.
 """
 
 import dataclasses
@@ -170,7 +171,7 @@ def test_pending_window_ba_merges_at_the_next_frame(seq):
                       device="cpu")
     info = slam.process_frame(*seq.images[0])
     assert info["kind"] == "keyframe" and slam._pending_ba is not None
-    wp, _, points = slam._pending_ba
+    wp, _, points, _ = slam._pending_ba
     pos_before = slam.lm.pos.clone()
     # every tracking frame wants a keyframe (inliers < 10**6); the merge at
     # the start of the frame lets the request through
@@ -553,23 +554,96 @@ def test_set_params_rederives_pnp_threshold(seq):
     for name in slam_mod.CAPACITY_FIELDS:
         with pytest.raises(ValueError, match="sizes the state's buffers"):
             slam.set_param(name, 128)
-    # an unported setting is refused and leaves the config as it was
+    # the settings that once raised as unported are plain config fields now
     for name, value in (("ba_optimize_intrinsics", True), ("ba_device", 1),
                         ("gba_mesh_devices", 4)):
-        old = getattr(slam.cfg, name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            slam.set_param(name, value)
-        assert getattr(slam.cfg, name) == old
+        slam.set_param(name, value)
+        assert getattr(slam.cfg, name) == value
 
 
 @pytest.mark.parametrize("field,value", [("ba_optimize_intrinsics", True),
                                          ("ba_device", 1),
                                          ("gba_mesh_devices", 4)])
-def test_unported_settings_raise_and_name_roadmap(seq, field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlamSystem(seq.calib, port_config(**{field: value}), device="cpu")
+def test_unported_settings_raise_and_name_roadmap(seq, field, value,
+                                                  monkeypatch):
+    """No setting raises as unported any more: each is accepted and takes
+    its branch on the keyframe step. ``ba_optimize_intrinsics`` calls the
+    free-intrinsics solver and holds its [2, 8] result for the merge;
+    ``ba_device`` solves where ``SlamSystem.ba_device()`` says (the system's
+    own device on the CPU); ``gba_mesh_devices`` above the process's device
+    count gives no mesh (the documented fall-back), and with that many
+    devices (the list patched to four entries of the CPU) a four-way mesh.
+    The overlay and report hooks stay absent."""
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.pipeline import ba_global
+    from vslam_tpu_torch.solvers import ba as ba_mod
+
+    calls = []
+    for fn in ("solve_ba_schur", "solve_ba_schur_intrinsics"):
+        real = getattr(ba_mod, fn)
+        monkeypatch.setattr(ba_mod, fn, lambda *a, _r=real, _n=fn, **k: (
+            calls.append((_n, a[0].poses.device)), _r(*a, **k))[1])
+    slam = SlamSystem(seq.calib, port_config(**{field: value}), device="cpu")
+    info = slam.process_frame(*seq.images[0])
+    assert info["kind"] == "keyframe" and len(calls) == 1
+    wp, poses, points, intr2 = slam._pending_ba
+    if field == "ba_optimize_intrinsics":
+        assert calls[0][0] == "solve_ba_schur_intrinsics"
+        assert intr2.shape == (2, 8) and torch.isfinite(intr2).all()
+    else:
+        assert calls[0][0] == "solve_ba_schur" and intr2 is None
+    assert slam.ba_device() == torch.device("cpu") == calls[0][1]
+    if field == "gba_mesh_devices":
+        assert ba_global.gba_mesh(slam.cfg) is None
+        monkeypatch.setattr(mesh_mod, "available_devices",
+                            lambda: [torch.device("cpu")] * 4)
+        mesh = ba_global.gba_mesh(slam.cfg)
+        assert mesh.shape == {"data": 4}
+    slam.process_frame(*seq.images[1])
+    assert slam._pending_ba is None
     assert not hasattr(SlamSystem, "render_overlay")
     assert not hasattr(SlamSystem, "reprojection_report")
+
+
+def test_ba_optimize_intrinsics_merges_refined_intrinsics(seq, tmp_path):
+    """tests/test_ba.py::test_e2e_ba_optimize_intrinsics_flag's run and
+    bars: tracking holds from frame 3 on, the merged intrinsics are finite
+    and fx stays within 20 px; they differ from the calibration's (the
+    merge happened) and a checkpoint keeps them."""
+    slam = SlamSystem(seq.calib, port_config(ba_optimize_intrinsics=True),
+                      device="cpu")
+    infos = [slam.process_frame(*pair) for pair in seq.images[:10]]
+    assert all(i["ok"] for i in infos[3:]), [i["ok"] for i in infos]
+    intr0, intr1 = slam.intr0.numpy(), slam.intr1.numpy()
+    assert np.isfinite(intr0).all() and np.isfinite(intr1).all()
+    assert abs(intr0[0] - seq.calib.intrinsics[0][0]) < 20.0, intr0
+    assert not np.array_equal(intr0, np.asarray(seq.calib.intrinsics[0],
+                                                np.float32))
+    path = str(tmp_path / "ckpt")
+    tcheckpoint.save(slam, path)
+    back = tcheckpoint.load(
+        SlamSystem(seq.calib, port_config(ba_optimize_intrinsics=True),
+                   device="cpu"), path, device="cpu")
+    assert torch.equal(back.intr0, slam.intr0)
+    assert torch.equal(back.intr1, slam.intr1)
+    assert not np.array_equal(back.intr0.numpy(),
+                              np.asarray(seq.calib.intrinsics[0], np.float32))
+
+
+def test_ba_device_matches_single_device(seq):
+    """tests/test_multichip.py::test_ba_on_second_device_matches_single_
+    device's bar (keyframe ATE < 0.15 m over 12 frames either way); the
+    port's solve is finished when it is held, so on one device the two runs
+    are the same run: every ``info`` and the poses are equal."""
+    runs = []
+    for ba_device in (None, 1):
+        slam = SlamSystem(seq.calib, port_config(ba_device=ba_device),
+                          device="cpu")
+        infos = [slam.process_frame(*pair) for pair in seq.images[:12]]
+        assert kf_ate(slam, seq) < 0.15
+        runs.append((infos, np.stack(slam.trajectory)))
+    assert runs[0][0] == runs[1][0]
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
 
 
 def test_streaming_set_param(seq):

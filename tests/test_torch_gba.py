@@ -240,17 +240,21 @@ def test_gba_dispatch_and_skip_merge_match_jax(jax_maps):
 
 
 def test_unported_global_ba_branches_raise(jax_maps, monkeypatch):
-    """A sharded solve still raises and names ROADMAP; a map above
-    ``BLOCKED_MAX_PAIRS`` keyframe pairs (patched low here) no longer does:
-    it takes the matrix-free branch."""
+    """No branch of the global BA raises any more: a mesh shards the solve
+    (the flat CG branch, whatever the map's size), ``gba_mesh`` falls back
+    to the single-device solve where the process has too few devices, and
+    a map above ``BLOCKED_MAX_PAIRS`` keyframe pairs (patched low here)
+    takes the matrix-free branch."""
+    from vslam_tpu_torch.parallel.mesh import make_mesh
+
     kt, lt, i0t, i1t = port_state(jax_maps[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgba.dispatch_global_ba(kt, lt, i0t, i1t, cam_name="pinhole",
-                                mesh=object())
+    pending = tgba.dispatch_global_ba(
+        kt, lt, i0t, i1t, cam_name="pinhole", max_iters=2, cg_iters=5,
+        mesh=make_mesh(2, devices=["cpu", "cpu"]))
+    assert pending.stats["cg_iterations"] == 5 * pending.stats["iterations"]
     cfg = gba_config()
-    cfg.gba_mesh_devices = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgba.gba_mesh(cfg)
+    cfg.gba_mesh_devices = 64
+    assert tgba.gba_mesh(cfg) is None
     monkeypatch.setattr(tgba, "BLOCKED_MAX_PAIRS", 2)
     kf2, lm2, stats = tgba.run_global_ba(kt, lt, i0t, i1t,
                                          cam_name="pinhole", max_iters=4,

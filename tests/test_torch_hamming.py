@@ -338,3 +338,106 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         cuda_hamming.landmark_top2(
             *(t(x) for x in landmark_inputs(8, 8, 4, 0)), 20.0)
     assert cuda_hamming.LAUNCHES == {"landmark_top2": 0, "hamming_top2": 0}
+
+
+# ---- the sequence axis of the guided landmark matching ------------------
+
+def _jax_lm_top2(kp, kv, kxy, banks, bv, lxy, lv, r):
+    """``jax_cpu_landmark_top2`` in jnp only, so that ``jax.vmap`` takes it
+    over a sequence axis."""
+    p, b, _ = banks.shape
+    flat_valid = bv.reshape(p * b) & jnp.repeat(lv, b)
+    d = jham.distance_matrix(kp, banks.reshape(p * b, 256), kv, flat_valid)
+    d = d.reshape(d.shape[0], p, b).min(axis=-1)
+    diff = kxy[:, None, :] - lxy[None, :, :]
+    gate = ((jnp.sum(diff * diff, axis=-1) < r * r) & lv[None, :]
+            & kv[:, None])
+    d = jnp.where(gate, d, jham.PAD_DIST)
+    b1, b2 = jham._top2_min(d, axis=1)
+    return b1, b2, jnp.argmin(d, axis=1), jnp.any(gate, axis=1)
+
+
+def _stacked_inputs(num_seq):
+    """S = 1, 2, 3 stacked problems: random ones of one shape, the last
+    sequence without a valid keypoint when there are three."""
+    parts = [landmark_inputs(120, 300, 4, 40 + s) for s in range(num_seq)]
+    out = [np.stack(x) for x in zip(*parts)]
+    if num_seq == 3:
+        out[1][2] = False
+    return out
+
+
+@pytest.mark.parametrize("num_seq", [1, 2, 3])
+def test_landmark_top2_sequence_axis(num_seq):
+    """The batched plain version and ``match_landmarks`` equal the
+    per-sequence call on every row, bit for bit, and ``jax.vmap`` of the
+    JAX CPU path (argmin included)."""
+    import jax
+
+    arrs = _stacked_inputs(num_seq)
+    got = tham.landmark_top2_plain(*(t(x) for x in arrs), 20.0)
+    want_j = jax.vmap(lambda *a: _jax_lm_top2(*a, 20.0))(
+        *(jnp.asarray(x) for x in arrs))
+    gm = tham.match_landmarks(*(t(arrs[i]) for i in (0, 1, 3, 4, 2, 5, 6)),
+                              max_dist_2d=20.0)
+    jm = jax.vmap(lambda kp, kv, kxy, bk, bv, lxy, lv: jham.match_landmarks(
+        kp, kv, bk, bv, kxy, lxy, lv, max_dist_2d=20.0))(
+        *(jnp.asarray(x) for x in arrs))
+    for g, w in zip(got + gm, tuple(want_j) + tuple(jm)):
+        assert g.shape[0] == num_seq
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for s in range(num_seq):
+        one = tham.landmark_top2_plain(*(t(x[s]) for x in arrs), 20.0)
+        one_m = tham.match_landmarks(
+            *(t(arrs[i][s]) for i in (0, 1, 3, 4, 2, 5, 6)), max_dist_2d=20.0)
+        for g, w in zip(got + gm, one + one_m):
+            assert torch.equal(g[s], w)
+    assert int(gm[1].sum()) > 20 * num_seq - 20 * (num_seq == 3)
+
+
+def test_landmark_top2_sequence_axis_ties():
+    """The tie cases in different sequences of one stack: every row equals
+    the case run alone and ``jax.vmap`` of the JAX CPU path."""
+    import jax
+
+    *arrs, r = synthetic.landmark_ties_stacked()
+    got = tham.landmark_top2_plain(*(t(x) for x in arrs), r)
+    want = jax.vmap(lambda *a: _jax_lm_top2(*a, np.float32(r)))(
+        *(jnp.asarray(x) for x in arrs))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for s, case in enumerate(synthetic.LANDMARK_TIE_CASES):
+        alone = synthetic.landmark_ties(case, 11 + s)
+        one = tham.landmark_top2_plain(*(t(x) for x in alone[:7]), alone[7])
+        for g, w in zip(got, one):
+            assert torch.equal(g[s], w), case
+    # the cases do what they are for: ties decided, 256 with a candidate
+    assert (got[0] == got[1]).any() and ((got[0] == 256) & got[3]).any()
+
+
+def test_cuda_wrapper_sequence_axis_checks():
+    """The launcher takes every tensor with the leading sequence axis or
+    none with it; mixed ranks raise before anything else is looked at, and
+    the per-slab alignment follows from the base's (checked on CPU
+    tensors: the launch needs the card)."""
+    from vslam_tpu_torch.ops import cuda_hamming
+
+    arrs = [t(x) for x in _stacked_inputs(2)]
+    for drop in range(7):
+        mixed = [a[0] if i == drop else a for i, a in enumerate(arrs)]
+        with pytest.raises(ValueError, match="sequence axis"):
+            cuda_hamming.landmark_top2(*mixed, 20.0)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        cuda_hamming.landmark_top2(*arrs, 20.0)
+    # a stacked descriptor tensor off the 16-byte boundary raises as the
+    # unstacked one does; an aligned stack passes whole
+    base = torch.zeros(2 * 8 * 256 + 16, dtype=torch.uint8)
+    off = (-base.data_ptr()) % 16
+    good = base[off:off + 2 * 8 * 256].view(2, 8, 256)
+    bad = base[off + 1:off + 1 + 2 * 8 * 256].view(2, 8, 256)
+    args = ("kp_bits", torch.uint8, (2, 8, 256), torch.device("cpu"))
+    assert cuda_hamming._check(good, *args, align=16) is good
+    assert all(good[s].data_ptr() % 16 == 0 for s in range(2))
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_hamming._check(bad, *args, align=16)
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == 0

@@ -70,7 +70,11 @@ def test_port_imports_no_jax():
         assert len(names) > 40, names
         for must in ("vslam_tpu_torch.cli", "vslam_tpu_torch.pipeline.slam",
                      "vslam_tpu_torch.utils.checkpoint",
-                     "vslam_tpu_torch.solvers.ba_cg"):
+                     "vslam_tpu_torch.solvers.ba_cg",
+                     "vslam_tpu_torch.parallel.mesh",
+                     "vslam_tpu_torch.parallel.sharded_ba",
+                     "vslam_tpu_torch.parallel.multiseq",
+                     "vslam_tpu_torch.parallel.multiseq_runner"):
             assert must in names, must
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "vslam_tpu"))
@@ -101,7 +105,8 @@ def test_no_source_file_of_the_port_names_jax():
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")]
     files.append(os.path.join(os.path.dirname(pkg), "chip_smoke.py"))
-    assert len(files) > 45
+    assert len(files) > 50
+    assert sum(os.sep + "parallel" + os.sep in f for f in files) == 5
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "vslam_tpu"}
         assert not bad, (path, bad)
@@ -290,3 +295,25 @@ def test_cli_flags_are_the_reference_s_minus_the_unported():
     assert flags(jcli) - flags(tcli) == {"--viz-html", "--overlay-every",
                                          "--overlay-dir"}
     assert flags(tcli) - flags(jcli) == {"--device"}
+
+
+def test_parallel_host_parts_match_the_reference():
+    """What ``parallel/`` keeps on the host: ``pack_frames`` packs as the
+    reference's does, and ``make_mesh`` follows its shape rule (one axis:
+    (n,); two axes: the second gets 2 when n is even and at least 4)."""
+    from vslam_tpu.parallel.multiseq_runner import MultiSeqVO as JaxMultiSeq
+    from vslam_tpu_torch.parallel.mesh import make_mesh
+    from vslam_tpu_torch.parallel.multiseq_runner import MultiSeqVO
+
+    rng = np.random.RandomState(0)
+    frames = [(rng.randint(0, 255, (3, 8, 10)).astype(np.uint8),
+               rng.randint(0, 255, (3, 8, 10)).astype(np.uint8))
+              for _ in range(4)]
+    a, b = MultiSeqVO.pack_frames(frames), JaxMultiSeq.pack_frames(frames)
+    assert a.shape == (4, 2, 3, 8, 10) and a.dtype == b.dtype
+    assert a.tobytes() == b.tobytes() and a.flags["C_CONTIGUOUS"]
+    for n, want in ((1, (1, 1)), (2, (2, 1)), (4, (2, 2)), (6, (3, 2)),
+                    (8, (4, 2))):
+        mesh = make_mesh(n, axes=("data", "model"), devices=["cpu"] * n)
+        assert mesh.devices.shape == want
+        assert make_mesh(n, devices=["cpu"] * n).shape == {"data": n}

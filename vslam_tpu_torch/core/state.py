@@ -24,6 +24,19 @@ class TensorState:
         return dataclasses.replace(self, **changes)
 
 
+def map_tensors(obj, fn):
+    """``fn`` over a tensor, or over every tensor of a dataclass (nested
+    ones too); fields that hold anything else (None, host integers) stay
+    as they are."""
+    if torch.is_tensor(obj):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: map_tensors(getattr(obj, f.name), fn)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
 @dataclasses.dataclass
 class LandmarkState(TensorState):
     pos: torch.Tensor         # [L, 3] world position (lm.p)

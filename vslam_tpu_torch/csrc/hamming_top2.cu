@@ -27,9 +27,12 @@
 // Hamming work, so the design gates first and spends the card on the few
 // pairs left.
 //   - Grid: one warp per keypoint row, 16 rows per block: 1500 warps in
-//     94 blocks at N=1500. With 120 registers a thread (the next batch's
-//     bank bytes are held while this one is summed) one such block fits
-//     an SM; more, smaller blocks or several warps per row ran slower.
+//     94 blocks at N=1500; gridDim.y is the sequence axis of the
+//     multi-sequence path (S stacked problems in one launch, 752 blocks
+//     at S=8; the single-sequence callers are S=1 of the same kernel).
+//     With 120 registers a thread (the next batch's bank bytes are held
+//     while this one is summed) one such block fits an SM; more, smaller
+//     blocks or several warps per row ran slower.
 //   - Staging: the block stages the landmarks' xy in shared memory, 2048
 //     at a time (16 KB), every load made before any store; an invalid
 //     landmark, or padding to a whole gate round, is NaN, so the one
@@ -341,6 +344,7 @@ constexpr int kLmPad = 32 * kUnroll;  // staged multiple: whole rounds
 constexpr int kHitLanes = 8;      // lanes per hit: 32 bytes of a slot each
 constexpr int kBatch = 32 / kHitLanes;  // hits a warp takes at once
 constexpr int kSlotsPerPass = 4;  // bank slots loaded at once
+constexpr int kMaxSequences = 65535;  // gridDim.y's limit
 static_assert(kLmChunk / 32 <= 64, "a lane keeps its gate bits in 64 bits");
 static_assert(kLmChunk % kLmPad == 0, "whole rounds per chunk");
 static_assert(kSlotsPerPass == 4, "pass_min sums slots in pairs");
@@ -412,8 +416,13 @@ __device__ __forceinline__ int pass_min(const BankPass& b, const Bytes32& kb,
   return dmin;
 }
 
-// kp [N, 256], bank [P, B, 256]: descriptors as {0,1} bytes, 16-byte
-// aligned; kp_xy [N], lm_xy [P]: (x, y) pairs, 8-byte aligned.
+// kp [S, N, 256], bank [S, P, B, 256]: descriptors as {0,1} bytes, 16-byte
+// aligned; kp_xy [S, N], lm_xy [S, P]: (x, y) pairs, 8-byte aligned.
+// blockIdx.y is the sequence: every array is a stack of S contiguous
+// per-sequence slabs (a slab keeps its base's alignment: 256 N, 8 N, 256 P B
+// and 8 P bytes are multiples of 16 and 8), the block moves each pointer
+// to its sequence's slab and then works within it, so arg is an index
+// into the sequence's own P.
 __global__ void __launch_bounds__(kLmThreads)
 landmark_top2_kernel(const uint8_t* __restrict__ kp,
                      const bool* __restrict__ kp_valid,
@@ -429,6 +438,21 @@ landmark_top2_kernel(const uint8_t* __restrict__ kp,
   const int lane = threadIdx.x & 31;
   const int group = lane / kHitLanes, sub = lane % kHitLanes;
   const int row = blockIdx.x * kLmWarps + (threadIdx.x >> 5);
+  {
+    const size_t seq = blockIdx.y;
+    const size_t kp0 = seq * n, lm0 = seq * p;
+    kp += kp0 * 256;
+    kp_valid += kp0;
+    kp_xy += kp0;
+    bank += lm0 * nb * 256;
+    bank_valid += lm0 * nb;
+    lm_xy += lm0;
+    lm_valid += lm0;
+    best_out += kp0;
+    second_out += kp0;
+    arg_out += kp0;
+    any_out += kp0;
+  }
   const bool active = row < n && kp_valid[row];  // the same for the warp
   Bytes32 kb = {};
   float2 kxy = make_float2(0.f, 0.f);
@@ -598,14 +622,14 @@ int vslam_hamming_top2(const void* a, const void* b, const void* valid_a,
 int vslam_landmark_top2(const void* kp, const void* kp_valid,
                         const void* kp_xy, const void* bank,
                         const void* bank_valid, const void* lm_xy,
-                        const void* lm_valid, float r2, int n, int p, int nb,
-                        void* best, void* second, void* arg, void* any,
-                        void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
+                        const void* lm_valid, float r2, int num_seq, int n,
+                        int p, int nb, void* best, void* second, void* arg,
+                        void* any, void* stream) {
+  if (n <= 0 || num_seq <= 0) return static_cast<int>(cudaSuccess);
   if (p < 0 || p > static_cast<int>(kArgMask) + 1 || nb < 0 ||
-      nb > kMaxBank)
+      nb > kMaxBank || num_seq > kMaxSequences)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kLmWarps - 1) / kLmWarps);
+  const dim3 grid((n + kLmWarps - 1) / kLmWarps, num_seq);
   landmark_top2_kernel<<<grid, kLmThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(kp), static_cast<const bool*>(kp_valid),

@@ -23,22 +23,37 @@ def top_k(values, k: int):
 def compact_indices(valid, k: int, newest_first: bool = False):
     """Indices of the first (or last) K valid entries.
 
-    valid [N] bool -> (idx [K] int64 in [0, N) for selected, N for empty
-    slots), plus the selection-validity mask [K].
+    valid [..., N] bool -> (idx [..., K] int64 in [0, N) for selected, N for
+    empty slots), plus the selection-validity mask [..., K]; each row of a
+    stack is compacted on its own.
 
     newest_first=True returns the LAST valid entries (highest index first),
     used for the in-view landmark cap where newer landmarks win.
     """
-    n = valid.shape[0]
-    v = valid.flip(0) if newest_first else valid
-    pos = torch.cumsum(v.to(torch.int64), 0) - 1     # rank among valid
+    n = valid.shape[-1]
+    v = valid.flip(-1) if newest_first else valid
+    pos = torch.cumsum(v.to(torch.int64), -1) - 1     # rank among valid
     src = torch.arange(n, device=valid.device)
     if newest_first:
         src = n - 1 - src
     # unselected entries all land in the extra slot k, which is cut off:
     # selected targets are distinct, so the kept slots are deterministic
     tgt = torch.where(v & (pos < k), pos, torch.full_like(pos, k))
-    idx = torch.full((k + 1,), n, dtype=torch.int64, device=valid.device)
-    idx.scatter_(0, tgt, src)
-    idx = idx[:k]
+    idx = torch.full(valid.shape[:-1] + (k + 1,), n, dtype=torch.int64,
+                     device=valid.device)
+    idx.scatter_(-1, tgt, src.expand(valid.shape))
+    idx = idx[..., :k]
     return idx, idx < n
+
+
+def take_rows(table, idx):
+    """table [..., L, *rest], idx [..., P] -> table's rows idx [..., P,
+    *rest], each leading index on its own table (``table[idx]`` where there
+    is no leading axis)."""
+    lead = idx.dim() - 1
+    if lead == 0:
+        return table[idx]
+    flat = table.reshape((-1,) + table.shape[lead:])
+    which = torch.arange(flat.shape[0], device=idx.device).reshape(
+        idx.shape[:-1] + (1,))
+    return flat[which, idx]

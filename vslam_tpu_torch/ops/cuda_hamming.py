@@ -43,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_BANK = 8  # kMaxBank in the source
 # both kernels' merge key holds the candidate index in 23 bits (kArgBits)
 MAX_CANDIDATES = 1 << 23
+MAX_SEQUENCES = 65535  # kMaxSequences: the grid's y axis
 
 _lock = threading.Lock()
 _lib = None
@@ -93,7 +94,7 @@ def _load():
                                                vp, vp, vp, vp]
             lib.vslam_hamming_top2.restype = ci
             lib.vslam_landmark_top2.argtypes = [vp] * 7 + [
-                ctypes.c_float, ci, ci, ci] + [vp] * 5
+                ctypes.c_float, ci, ci, ci, ci] + [vp] * 5
             lib.vslam_landmark_top2.restype = ci
             _lib = lib
     return _lib
@@ -166,43 +167,59 @@ def landmark_top2(kp_bits, kp_valid, kp_xy, bank_bits, bank_valid,
 
     kp_bits [N, 256] uint8 {0,1}, kp_valid [N] bool, kp_xy [N, 2] f32;
     bank_bits [P, B, 256] uint8 {0,1} (B <= 8), bank_valid [P, B] bool,
-    lm_proj_xy [P, 2] f32, lm_valid [P] bool; max_dist_2d a number. Where
-    contiguous, the descriptor bytes must be 16-byte and the xy 8-byte
-    aligned. Returns (best, second, arg) int32 [N] and any_candidate bool
-    [N].
+    lm_proj_xy [P, 2] f32, lm_valid [P] bool; max_dist_2d a number. Or
+    every tensor with the same leading sequence axis [S, ...]: S stacked
+    problems in one launch (the kernel's grid y axis), ``arg`` an index
+    into the sequence's own P. Where contiguous, the descriptor bytes must
+    be 16-byte and the xy 8-byte aligned (every sequence's slab then is).
+    Returns (best, second, arg) int32 [N] and any_candidate bool [N], or
+    [S, N] each. One launch, and one count, per call whatever S is.
     """
+    batched = kp_bits.dim() == 3
+    ranks = (2, 1, 2, 3, 2, 2, 1)
+    tensors = (kp_bits, kp_valid, kp_xy, bank_bits, bank_valid, lm_proj_xy,
+               lm_valid)
+    if any(t.dim() != r + batched for t, r in zip(tensors, ranks)):
+        raise ValueError(
+            "landmark_top2 takes every tensor with a leading sequence axis "
+            f"or none with one; got ranks {[t.dim() for t in tensors]}")
     dev = _cuda_device(kp_bits, "landmark_top2")
-    n = kp_bits.shape[0]
-    p, nb = bank_bits.shape[0], bank_bits.shape[1]
+    lead = (kp_bits.shape[0],) if batched else ()
+    n = kp_bits.shape[-2]
+    p, nb = bank_bits.shape[-3], bank_bits.shape[-2]
     if nb > MAX_BANK:
         raise ValueError(f"landmark bank of {nb} slots; the kernel takes at "
                          f"most {MAX_BANK}")
     if p > MAX_CANDIDATES:
         raise ValueError(f"{p} landmarks; the kernel takes at most "
                          f"{MAX_CANDIDATES}")
-    kp = _check(kp_bits, "kp_bits", torch.uint8, (n, 256), dev, align=16)
-    bank = _check(bank_bits, "bank_bits", torch.uint8, (p, nb, 256), dev,
-                  align=16)
-    kv = _check(kp_valid, "kp_valid", torch.bool, (n,), dev)
-    kxy = _check(kp_xy, "kp_xy", torch.float32, (n, 2), dev, align=8)
-    bv = _check(bank_valid, "bank_valid", torch.bool, (p, nb), dev)
-    lxy = _check(lm_proj_xy, "lm_proj_xy", torch.float32, (p, 2), dev,
+    if batched and lead[0] > MAX_SEQUENCES:
+        raise ValueError(f"{lead[0]} sequences; the kernel takes at most "
+                         f"{MAX_SEQUENCES}")
+    kp = _check(kp_bits, "kp_bits", torch.uint8, lead + (n, 256), dev,
+                align=16)
+    bank = _check(bank_bits, "bank_bits", torch.uint8, lead + (p, nb, 256),
+                  dev, align=16)
+    kv = _check(kp_valid, "kp_valid", torch.bool, lead + (n,), dev)
+    kxy = _check(kp_xy, "kp_xy", torch.float32, lead + (n, 2), dev, align=8)
+    bv = _check(bank_valid, "bank_valid", torch.bool, lead + (p, nb), dev)
+    lxy = _check(lm_proj_xy, "lm_proj_xy", torch.float32, lead + (p, 2), dev,
                  align=8)
-    lv = _check(lm_valid, "lm_valid", torch.bool, (p,), dev)
-    best = torch.empty(n, dtype=torch.int32, device=dev)
+    lv = _check(lm_valid, "lm_valid", torch.bool, lead + (p,), dev)
+    best = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
     second = torch.empty_like(best)
     arg = torch.empty_like(best)
-    any_c = torch.empty(n, dtype=torch.bool, device=dev)
-    if n:
+    any_c = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
+    if best.numel():
         lib = _load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.vslam_landmark_top2(
                 kp.data_ptr(), kv.data_ptr(), kxy.data_ptr(),
                 bank.data_ptr(), bv.data_ptr(), lxy.data_ptr(),
-                lv.data_ptr(), gate_radius_sq(max_dist_2d), n, p, nb,
-                best.data_ptr(), second.data_ptr(), arg.data_ptr(),
-                any_c.data_ptr(), stream)
+                lv.data_ptr(), gate_radius_sq(max_dist_2d),
+                lead[0] if batched else 1, n, p, nb, best.data_ptr(),
+                second.data_ptr(), arg.data_ptr(), any_c.data_ptr(), stream)
         _raise_on(err, "landmark_top2")
         LAUNCHES["landmark_top2"] += 1
     return best, second, arg, any_c

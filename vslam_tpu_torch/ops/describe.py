@@ -5,6 +5,10 @@ per corner (R=19 covers every rotated tap), the moment sums as masked
 reductions, and all 256 tests as one batched gather. The reference's
 one-hot matmul sampling (its ``use_mxu`` branches) is a TPU layout choice
 with the same results and is not ported.
+
+Every function takes one image's corners / patches or a stack with leading
+axes ([..., H, W] images with [..., K, 2] corners), and returns the same
+leading axes.
 """
 
 from __future__ import annotations
@@ -26,59 +30,68 @@ _DISC_WY = (_DISC * _oy).astype(np.float32)
 
 
 def gather_patches(img, corners, radius: int = PATCH_RADIUS):
-    """img [H, W], corners [K, 2] float (x, y) -> [K, 2r+1, 2r+1] float32.
+    """img [..., H, W], corners [..., K, 2] float (x, y) -> [..., K, 2r+1,
+    2r+1] float32.
 
     Out-of-range corners (e.g. the (-1,-1) invalid fill) are clamped, so
     every read stays inside the image; callers rely on the validity mask.
     """
-    h, w = img.shape
-    cx = torch.clamp(corners[:, 0].to(torch.int64), radius, w - radius - 1)
-    cy = torch.clamp(corners[:, 1].to(torch.int64), radius, h - radius - 1)
+    h, w = img.shape[-2:]
+    cx = torch.clamp(corners[..., 0].to(torch.int64), radius, w - radius - 1)
+    cy = torch.clamp(corners[..., 1].to(torch.int64), radius, h - radius - 1)
     off = torch.arange(-radius, radius + 1, device=img.device)
-    rows = (cy[:, None] + off)[:, :, None]          # [K, k, 1]
-    cols = (cx[:, None] + off)[:, None, :]          # [K, 1, k]
-    return img[rows, cols].to(torch.float32)
+    rows = (cy[..., None] + off)[..., :, None]      # [..., K, k, 1]
+    cols = (cx[..., None] + off)[..., None, :]      # [..., K, 1, k]
+    if img.dim() == 2:
+        return img[rows, cols].to(torch.float32)
+    lead = img.shape[:-2]
+    flat = img.reshape((-1, h, w))
+    which = torch.arange(flat.shape[0], device=img.device).reshape(
+        lead + (1, 1, 1))
+    return flat[which, rows, cols].to(torch.float32)
 
 
 def compute_angles(patches, rotate_features: bool = True):
-    """Intensity-centroid orientation per patch. patches [K, 39, 39] f32."""
+    """Intensity-centroid orientation per patch. patches [..., K, 39, 39]
+    f32."""
     if not rotate_features:
-        return patches.new_zeros(patches.shape[0])
+        return patches.new_zeros(patches.shape[:-2])
     c = PATCH_RADIUS
-    sub = patches[:, c - HALF_PATCH_SIZE:c + HALF_PATCH_SIZE + 1,
+    sub = patches[..., c - HALF_PATCH_SIZE:c + HALF_PATCH_SIZE + 1,
                   c - HALF_PATCH_SIZE:c + HALF_PATCH_SIZE + 1]
     # integer pixels times integer weights: every sum below is an exact
     # f32 integer whatever the summation order
-    m01 = torch.sum(sub * patches.new_tensor(_DISC_WY), dim=(1, 2))
-    m10 = torch.sum(sub * patches.new_tensor(_DISC_WX), dim=(1, 2))
+    m01 = torch.sum(sub * patches.new_tensor(_DISC_WY), dim=(-2, -1))
+    m10 = torch.sum(sub * patches.new_tensor(_DISC_WX), dim=(-2, -1))
     return torch.atan2(m01, m10)
 
 
 def compute_descriptors(patches, angles):
-    """Rotated BRIEF bits. patches [K, 39, 39], angles [K] -> bits [K, 256]
-    uint8."""
-    ca = torch.cos(angles)[:, None]  # [K, 1]
-    sa = torch.sin(angles)[:, None]
+    """Rotated BRIEF bits. patches [..., K, 39, 39], angles [..., K] -> bits
+    [..., K, 256] uint8."""
+    ca = torch.cos(angles)[..., None]  # [..., K, 1]
+    sa = torch.sin(angles)[..., None]
 
     def rotated_idx(pat):
-        # pat [256, 2] -> flattened patch indices [K, 256]; torch.round
-        # rounds half to even, as jnp.round does
+        # pat [256, 2] -> flattened patch indices [..., K, 256];
+        # torch.round rounds half to even, as jnp.round does
         pat = torch.as_tensor(pat, dtype=torch.float32, device=angles.device)
-        px, py = pat[:, 0][None, :], pat[:, 1][None, :]
+        px, py = pat[:, 0], pat[:, 1]
         rx = torch.round(ca * px - sa * py).to(torch.int64) + PATCH_RADIUS
         ry = torch.round(sa * px + ca * py).to(torch.int64) + PATCH_RADIUS
         rx = torch.clamp(rx, 0, _PATCH_W - 1)
         ry = torch.clamp(ry, 0, _PATCH_W - 1)
         return ry * _PATCH_W + rx
 
-    flat = patches.reshape(patches.shape[0], -1)  # [K, 39*39]
-    va = torch.gather(flat, 1, rotated_idx(PATTERN_A))
-    vb = torch.gather(flat, 1, rotated_idx(PATTERN_B))
+    flat = patches.reshape(patches.shape[:-2] + (-1,))  # [..., K, 39*39]
+    va = torch.gather(flat, -1, rotated_idx(PATTERN_A))
+    vb = torch.gather(flat, -1, rotated_idx(PATTERN_B))
     return (va < vb).to(torch.uint8)
 
 
 def describe(img, corners, rotate_features: bool = True):
-    """img [H, W], corners [K, 2] -> (angles [K] f32, bits [K, 256] uint8)."""
+    """img [..., H, W], corners [..., K, 2] -> (angles [..., K] f32, bits
+    [..., K, 256] uint8)."""
     patches = gather_patches(img, corners)
     angles = compute_angles(patches, rotate_features)
     return angles, compute_descriptors(patches, angles)

@@ -41,14 +41,14 @@ def signed(bits):
 
 def distance_matrix(bits_a, bits_b, valid_a=None, valid_b=None):
     """bits_a [N, 256], bits_b [M, 256] {0,1} -> [N, M] int32 distances in
-    [0, 256]; invalid rows/cols are PAD_DIST."""
-    dot = signed(bits_a) @ signed(bits_b).T
+    [0, 256]; invalid rows/cols are PAD_DIST. Leading axes are batch axes."""
+    dot = signed(bits_a) @ signed(bits_b).transpose(-1, -2)
     d = ((256.0 - dot) * 0.5).to(torch.int32)
     pad = torch.full_like(d, PAD_DIST)
     if valid_a is not None:
-        d = torch.where(valid_a[:, None], d, pad)
+        d = torch.where(valid_a[..., :, None], d, pad)
     if valid_b is not None:
-        d = torch.where(valid_b[None, :], d, pad)
+        d = torch.where(valid_b[..., None, :], d, pad)
     return d
 
 
@@ -117,29 +117,35 @@ def landmark_top2_plain(kp_bits, kp_valid, kp_xy, bank_bits, bank_valid,
     """Guided landmark matching stats (the reference's CPU path).
 
     kp_bits [N, 256], kp_xy [N, 2]; bank_bits [P, B, 256] with validity
-    [P, B]; lm_proj_xy [P, 2], lm_valid [P]. The distance to a landmark is
-    the min over its valid bank slots (PAD_DIST if none), PAD_DIST outside
-    the gate ||kp - proj||^2 < r^2. Returns (best, second, arg) int32 [N]
-    and any_candidate bool [N] (some valid landmark inside the gate).
+    [P, B]; lm_proj_xy [P, 2], lm_valid [P]; or every tensor with the same
+    leading sequence axis [S, ...] (each sequence is its own problem). The
+    distance to a landmark is the min over its valid bank slots (PAD_DIST
+    if none), PAD_DIST outside the gate ||kp - proj||^2 < r^2. Returns
+    (best, second, arg) int32 [N] and any_candidate bool [N] (some valid
+    landmark inside the gate), or [S, N] each.
     """
-    n = kp_bits.shape[0]
-    p, b, _ = bank_bits.shape
-    flat_bits = bank_bits.reshape(p * b, 256)
-    flat_valid = bank_valid.reshape(p * b) & lm_valid.repeat_interleave(b)
+    n = kp_bits.shape[-2]
+    p, b = bank_bits.shape[-3], bank_bits.shape[-2]
+    lead = kp_bits.shape[:-2]
+    flat_bits = bank_bits.reshape(lead + (p * b, 256))
+    flat_valid = (bank_valid.reshape(lead + (p * b,))
+                  & lm_valid.repeat_interleave(b, dim=-1))
     d = distance_matrix(kp_bits, flat_bits, kp_valid, flat_valid)
-    d = d.reshape(n, p, b).min(dim=-1).values if b else \
-        torch.full((n, p), PAD_DIST, dtype=torch.int32, device=d.device)
+    d = d.reshape(lead + (n, p, b)).min(dim=-1).values if b else \
+        torch.full(lead + (n, p), PAD_DIST, dtype=torch.int32,
+                   device=d.device)
 
-    diff = kp_xy[:, None, :] - lm_proj_xy[None, :, :]
+    diff = kp_xy[..., :, None, :] - lm_proj_xy[..., None, :, :]
     d2 = torch.sum(diff * diff, dim=-1)
-    gate = ((d2 < gate_radius_sq(max_dist_2d)) & lm_valid[None, :]
-            & kp_valid[:, None])
+    gate = ((d2 < gate_radius_sq(max_dist_2d)) & lm_valid[..., None, :]
+            & kp_valid[..., :, None])
     d = torch.where(gate, d, torch.full_like(d, PAD_DIST))
     if p == 0:
-        z = torch.full((n,), PAD_DIST, dtype=torch.int32, device=d.device)
-        return z, z.clone(), torch.zeros_like(z), gate.any(dim=1)
-    b1, b2, arg = _top2_min(d, 1)
-    return b1, b2, arg.to(torch.int32), gate.any(dim=1)
+        z = torch.full(lead + (n,), PAD_DIST, dtype=torch.int32,
+                       device=d.device)
+        return z, z.clone(), torch.zeros_like(z), gate.any(dim=-1)
+    b1, b2, arg = _top2_min(d, -1)
+    return b1, b2, arg.to(torch.int32), gate.any(dim=-1)
 
 
 def _use_kernel(t) -> bool:
@@ -195,7 +201,9 @@ def match_landmarks(kp_bits, kp_valid, lm_bank_bits, lm_bank_valid, kp_xy,
 
     Accept: a gated candidate exists, best < threshold and not(second <
     best * ratio); no cross-check. Returns (match_lm [N] int64 index into
-    the P axis or -1, accepted [N], any_candidate [N]).
+    the P axis or -1, accepted [N], any_candidate [N]). Every tensor may
+    carry the same leading sequence axis [S, ...]; the results then do
+    too, and on the card the S sequences are one kernel launch.
     """
     b1, b2, arg, any_c = landmark_top2(
         kp_bits, kp_valid, kp_xy, lm_bank_bits, lm_bank_valid, lm_proj_xy,

@@ -13,8 +13,10 @@ fixed or invalid. The blocked Schur solver (``solvers/ba_blocked.py``)
 serves K2 <= ``BLOCKED_MAX_PAIRS``, which is every problem of a map of at
 most 128 keyframes; larger maps take the flat observation list of
 ``_build`` (capped at O observations, lowest landmark rows first) and the
-matrix-free ``solvers/ba_cg.py``. A sharded solve over a device mesh
-(``parallel/sharded_ba``) is not ported: it raises.
+matrix-free ``solvers/ba_cg.py``. With a mesh (``gba_mesh``) the solve is
+always that flat CG one, its observations sharded over the mesh's devices
+(``parallel/sharded_ba``) and the results brought back to the state's
+device.
 
 Asynchronous GBA. The reference dispatches the solve on a snapshot, keeps
 tracking and skip-merges later (slam.cpp:1778-1788, :1410-1447); with its
@@ -47,31 +49,23 @@ def _pow2(n: int, lo: int = 16) -> int:
     return p
 
 
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what}: the global BA sharded over a device mesh "
-        "(parallel/sharded_ba.py, parallel/mesh.py) is not ported yet; see "
-        "ROADMAP.md Queue 1")
-
-
 def gba_mesh(cfg):
-    """The reference's device mesh for a sharded global BA
-    (``SlamConfig.gba_mesh_devices``): None when sharding is off; asking
-    for it raises (not ported)."""
+    """The mesh for a sharded global BA, per
+    ``SlamConfig.gba_mesh_devices``. Returns None (the single-device solve)
+    when sharding is off or the process has fewer devices than asked for:
+    the documented fall-back of the reference's setting."""
+    from ..parallel.mesh import available_devices, make_mesh
+
     n = int(getattr(cfg, "gba_mesh_devices", 0) or 0)
-    if n > 1:
-        _unported(f"gba_mesh_devices={n}")
-    return None
+    if n <= 1 or len(available_devices()) < n:
+        return None
+    return make_mesh(n, axes=("data",))
 
 
-def _problem_size(kf: KeyframeState, lm: LandmarkState, mesh):
+def _problem_size(kf: KeyframeState, lm: LandmarkState):
     n_kf = int(kf.next_slot)
     n_lm = int(lm.next_slot)
-    K2 = _pow2(n_kf)
-    Lw = _pow2(n_lm, lo=256)
-    if mesh is not None:
-        _unported("a sharded global BA")
-    return n_kf, n_lm, K2, Lw
+    return n_kf, n_lm, _pow2(n_kf), _pow2(n_lm, lo=256)
 
 
 def _cameras(kf: KeyframeState, intr0, intr1, K2: int):
@@ -131,19 +125,26 @@ def _build(kf: KeyframeState, lm: LandmarkState, intr0, intr1, K2: int,
 
 def _solve(kf: KeyframeState, lm: LandmarkState, intr0, intr1, n_lm: int,
            K2: int, Lw: int, cam_name: str, huber, max_iters: int,
-           cg_iters: int):
+           cg_iters: int, mesh=None):
     """Build and solve: blocked Schur up to BLOCKED_MAX_PAIRS keyframe
-    pairs, matrix-free LM-CG above. Returns (poses, points, stats)."""
-    if K2 <= BLOCKED_MAX_PAIRS:
+    pairs, matrix-free LM-CG above and whenever a mesh shards the solve.
+    Returns (poses, points, stats) on the state's device."""
+    if mesh is None and K2 <= BLOCKED_MAX_PAIRS:
         prob = _build_blocked(kf, lm, intr0, intr1, K2=K2, Lw=Lw)
         return ba_blocked.solve_ba_blocked(
             prob, cam_name=cam_name, huber=huber, max_iters=max_iters)
     M2 = int(lm.all_kf.shape[1])
     O = _pow2(min(n_lm * 6, Lw * M2), lo=1024)
     prob = _build(kf, lm, intr0, intr1, K2=K2, Lw=Lw, O=O)
-    return ba_cg.solve_ba_cg_stepped(
+    if mesh is not None:
+        from ..parallel import sharded_ba
+
+        prob = sharded_ba.shard_problem(prob, mesh)
+    poses, points, stats = ba_cg.solve_ba_cg_stepped(
         prob, cam_name=cam_name, huber=huber, max_iters=max_iters,
         cg_iters=cg_iters)
+    home = kf.pose_l.device
+    return poses.to(home), points.to(home), stats
 
 
 def _build_blocked(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
@@ -220,10 +221,12 @@ def run_global_ba(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
                   cam_name: str = "ds", huber: float = 1.0,
                   max_iters: int = 15, cg_iters: int = 25, mesh=None):
     """Build + solve + merge. Returns (kf, lm, stats). ``cg_iters`` is the
-    CG solver's inner iteration count (maps above BLOCKED_MAX_PAIRS)."""
-    n_kf, n_lm, K2, Lw = _problem_size(kf, lm, mesh)
+    CG solver's inner iteration count (maps above BLOCKED_MAX_PAIRS, and
+    every solve with a ``mesh``, a ``parallel.mesh.Mesh`` with a 'data'
+    axis over which the observations are sharded)."""
+    n_kf, n_lm, K2, Lw = _problem_size(kf, lm)
     poses, points, stats = _solve(kf, lm, intr0, intr1, n_lm, K2, Lw,
-                                  cam_name, huber, max_iters, cg_iters)
+                                  cam_name, huber, max_iters, cg_iters, mesh)
     kf_ok, lm_ok, _, _ = _live(kf, lm, K2, Lw, n_kf, n_lm)
     kf, lm = _merge(kf, lm, poses, points, kf_ok, lm_ok)
     return kf, lm, stats
@@ -252,11 +255,11 @@ def dispatch_global_ba(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
                        mesh=None) -> PendingGBA:
     """Snapshot the map and solve its global BA (see the module doc for
     why the solve runs here); merge later with ``merge_global_ba``."""
-    n_kf, n_lm, K2, Lw = _problem_size(kf, lm, mesh)
+    n_kf, n_lm, K2, Lw = _problem_size(kf, lm)
     snap_kf = kf.active.clone()
     snap_lm = lm.active.clone()
     poses, points, stats = _solve(kf, lm, intr0, intr1, n_lm, K2, Lw,
-                                  cam_name, huber, max_iters, cg_iters)
+                                  cam_name, huber, max_iters, cg_iters, mesh)
     return PendingGBA(poses=poses, points=points, n_kf=n_kf, n_lm=n_lm,
                       snap_active_kf=snap_kf, snap_active_lm=snap_lm,
                       stats=stats)

@@ -251,6 +251,26 @@ def deactivate_keyframes(kf: KeyframeState, lm: LandmarkState, deact_mask,
     return kf, lm
 
 
+def evict_to_newest(kf: KeyframeState, lm: LandmarkState, keep_n: int):
+    """Window eviction: keep the ``keep_n`` newest active keyframes (by
+    frame id) and deactivate the rest."""
+    K = kf.frame_id.shape[0]
+    act = kf.valid & kf.active
+    fid = torch.where(act, kf.frame_id, torch.full_like(kf.frame_id, -1))
+    keep_n = min(keep_n, K)
+    kth = compact.top_k(fid, keep_n)[0][keep_n - 1]
+    return deactivate_keyframes(kf, lm, act & (fid < kth))
+
+
+def cull_under_pressure(kf: KeyframeState, lm: LandmarkState,
+                        pressure: float, min_lifetime_obs: int):
+    """``cull_landmarks`` when at least ``pressure`` of the landmark table
+    is allocated (one host read of the count), else the state as it is."""
+    if int(lm.valid.sum()) >= int(pressure * lm.valid.shape[0]):
+        kf, lm, _ = cull_landmarks(kf, lm, min_lifetime_obs=min_lifetime_obs)
+    return kf, lm
+
+
 def cull_landmarks(kf: KeyframeState, lm: LandmarkState,
                    min_lifetime_obs: int = 3, max_cull: int = 4096):
     """Free the slots of weakly-observed dead landmarks (valid, out of the

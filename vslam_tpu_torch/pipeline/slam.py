@@ -23,13 +23,19 @@ Where the port differs from the reference, by construction:
   ``deterministic_async`` schedule, whatever that flag says;
 - the per-frame scalars come to the host in one read per step.
 
-Not ported (each raises and names ROADMAP.md): ``ba_optimize_intrinsics``,
-``ba_device`` and a sharded global BA (``gba_mesh_devices > 1``); the
-overlay and reprojection-report hooks are absent.
+``ba_optimize_intrinsics`` frees the two intrinsics blocks in the window
+BA and merges the refined values into the tracker. ``ba_device`` solves
+the window problem on ``cuda:(ba_device % device count)`` (the system's
+own device on the CPU) and brings the selection tables and the results
+home before the merge; with one card that is the system's card.
+``gba_mesh_devices > 1`` shards the global BA's observations when the
+process has that many devices (``ba_global.gba_mesh``). The overlay and
+reprojection-report hooks are absent.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import sys
 from typing import List, Optional
@@ -40,6 +46,7 @@ import torch
 from .. import resolve_device
 from ..config import SlamConfig
 from ..core import state as state_mod
+from ..core.state import map_tensors
 from ..frontend.features import extract_features
 from ..geometry import lie
 from ..io.calib import Calibration
@@ -58,25 +65,11 @@ CAPACITY_FIELDS = ("num_features", "max_landmarks", "max_keyframes",
                    "lm_desc_bank")
 
 
-def _check_ported(cfg: SlamConfig):
-    if cfg.ba_optimize_intrinsics:
-        raise NotImplementedError(
-            "ba_optimize_intrinsics: the window BA with free intrinsics "
-            "(solve_ba_schur_intrinsics) is not ported yet; see ROADMAP.md "
-            "Queue 1")
-    if cfg.ba_device is not None:
-        raise NotImplementedError(
-            "ba_device: the window BA on a second device is not ported yet; "
-            "see ROADMAP.md Queue 1")
-    ba_global.gba_mesh(cfg)   # raises for a sharded global BA
-
-
 class SlamSystem:
     def __init__(self, calib: Calibration, config: Optional[SlamConfig] = None,
                  feature_fn=None, device="cuda"):
         self.cfg = config or SlamConfig()
         cfg = self.cfg
-        _check_ported(cfg)
         self.device = resolve_device(device)
         dev = self.device
         # optional learned frontend: (img [H, W] uint8 tensor) -> Features
@@ -123,7 +116,7 @@ class SlamSystem:
         # slam.cpp:1555-1565): solved at the keyframe step, merged at the
         # start of the next frame; new keyframes are gated on the merge like
         # the reference's !opt_running && !opt_finished check
-        self._pending_ba = None  # (WindowProblem, poses, points)
+        self._pending_ba = None  # (WindowProblem, poses, points, intr2)
         # global BA after loop closure (global_ba_thread,
         # slam.cpp:1778-1788), skip-merged (slam.cpp:1410-1447)
         self._pending_gba = None
@@ -150,8 +143,7 @@ class SlamSystem:
         The host re-reads ``self.cfg`` every frame, so a changed field
         applies from the next frame on. The fields that size the state's
         buffers (``CAPACITY_FIELDS``) cannot change after construction
-        (the state is not resized) and raise ``ValueError``; a setting that
-        is not ported raises ``NotImplementedError``.
+        (the state is not resized) and raise ``ValueError``.
         """
         for k, v in kwargs.items():
             if not hasattr(self.cfg, k):
@@ -160,13 +152,7 @@ class SlamSystem:
                 raise ValueError(
                     f"{k!r} sizes the state's buffers and cannot change "
                     "mid-run; rebuild the SlamSystem with a new SlamConfig")
-            old = getattr(self.cfg, k)
             setattr(self.cfg, k, v)
-            try:
-                _check_ported(self.cfg)
-            except NotImplementedError:
-                setattr(self.cfg, k, old)
-                raise
             if k == "pnp_inlier_thresh_px":
                 self.pnp_threshold = 1.0 - math.cos(
                     math.atan(float(v) / 500.0))
@@ -437,14 +423,36 @@ class SlamSystem:
         return n_closed
 
     # ------------------------------------------------------------------
+    def ba_device(self) -> torch.device:
+        """Where the window BA is solved: ``cfg.ba_device`` picks card
+        ``ba_device % device count`` (the reference's
+        ``jax.devices()[ba_device % len(jax.devices())]``); unset, or with
+        the system on the CPU, its own device."""
+        n = self.cfg.ba_device
+        if n is None or self.device.type != "cuda":
+            return self.device
+        return torch.device("cuda", int(n) % torch.cuda.device_count())
+
     def _merge_pending_ba(self, force: bool = False) -> bool:
         """Merge the held window BA (slam.cpp:1379-1408 semantics). The
         solve is finished when it is held, so ``force`` changes nothing."""
         if self._pending_ba is None:
             return False
-        wp, poses, points = self._pending_ba
+        wp, poses, points, intr2 = self._pending_ba
+        if poses.device != self.device:
+            # bring the solve home: only the selection tables and the
+            # results move, not the problem
+            wp = map_tensors(dataclasses.replace(wp, prob=None),
+                             lambda x: x.to(self.device))
+            poses, points = poses.to(self.device), points.to(self.device)
+            if intr2 is not None:
+                intr2 = intr2.to(self.device)
         self.kf, self.lm = ba_window.merge_window_result(
             self.kf, self.lm, wp, poses, points)
+        if intr2 is not None:
+            # calib_cam = calib_cam_opt (slam.cpp:1406)
+            self.intr0 = intr2[0]
+            self.intr1 = intr2[1]
         self._pending_ba = None
         return True
 
@@ -634,10 +642,21 @@ class SlamSystem:
             self.kf, self.lm, self.intr0, self.intr1,
             W2=cfg.window_cams // 2, Lw=cfg.window_points, O=cfg.window_obs,
             obs_per_lm=cfg.ba_obs_per_lm)
-        ba_poses, ba_points, _ = ba_mod.solve_ba_schur(
-            wp.prob, cam_name=self.cam_name, huber=cfg.ba_huber_px,
-            max_iters=cfg.ba_max_iters)
-        self._pending_ba = (wp, ba_poses, ba_points)
+        ba_dev = self.ba_device()
+        if ba_dev != self.device:
+            wp = map_tensors(wp, lambda x: x.to(ba_dev))
+        if cfg.ba_optimize_intrinsics:
+            # hidden.ba_opt_intrinsics: free intrinsics blocks in the window
+            # BA (slam.cpp:1545, map_utils.h:397-403)
+            ba_poses, ba_points, ba_intr, _ = ba_mod.solve_ba_schur_intrinsics(
+                wp.prob, cam_name=self.cam_name, huber=cfg.ba_huber_px,
+                max_iters=cfg.ba_max_iters)
+        else:
+            ba_poses, ba_points, _ = ba_mod.solve_ba_schur(
+                wp.prob, cam_name=self.cam_name, huber=cfg.ba_huber_px,
+                max_iters=cfg.ba_max_iters)
+            ba_intr = None
+        self._pending_ba = (wp, ba_poses, ba_points, ba_intr)
 
         # global BA after a pose-graph correction (slam.cpp:1285-1288):
         # solved on a snapshot like the reference's global_ba_thread,

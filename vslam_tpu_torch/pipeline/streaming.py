@@ -46,7 +46,6 @@ from ..frontend.features import extract_features
 from ..geometry import lie
 from ..io.calib import Calibration
 from ..loop import vocabulary as vocab_mod
-from ..ops.compact import top_k
 from ..solvers import ba, pnp
 from . import ba_global, ba_window, keyframe as kf_mod, tracking
 
@@ -210,19 +209,10 @@ class StreamingVO:
             suppress_new=suppress)
 
         # window eviction: keep the newest max_num_kfs active pairs
-        act = out.kf.valid & out.kf.active
-        fid = torch.where(act, out.kf.frame_id,
-                          torch.full_like(out.kf.frame_id, -1))
-        keep_n = min(cfg.max_num_kfs, K)
-        kth = top_k(fid, keep_n)[0][keep_n - 1]
-        kf2, lm2 = kf_mod.deactivate_keyframes(out.kf, out.lm,
-                                               act & (fid < kth))
-
+        kf2, lm2 = kf_mod.evict_to_newest(out.kf, out.lm, cfg.max_num_kfs)
         if cfg.enable_lm_culling:
-            pressure = int(cfg.lm_cull_pressure * lm2.valid.shape[0])
-            if int(lm2.valid.sum()) >= pressure:
-                kf2, lm2, _ = kf_mod.cull_landmarks(
-                    kf2, lm2, min_lifetime_obs=cfg.lm_cull_min_obs)
+            kf2, lm2 = kf_mod.cull_under_pressure(
+                kf2, lm2, cfg.lm_cull_pressure, cfg.lm_cull_min_obs)
 
         # synchronous windowed Schur BA; the keyframe pose is post-BA
         wp = ba_window.build_window_problem(
@@ -398,7 +388,6 @@ class StreamingSLAM(StreamingVO):
                          device=device)
         from ..loop.detector import LoopDetector
 
-        ba_global.gba_mesh(self.cfg)   # raises for a sharded global BA
         self.poll_every = poll_every
         self.detector = LoopDetector(self.cfg.num_consistency)
         self.covis_host: dict = {}

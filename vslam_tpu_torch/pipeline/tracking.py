@@ -6,6 +6,19 @@ image, guided 2D-gated landmark matching, RANSAC PnP localization and the
 constant-velocity motion-gate statistic. The L-capacity landmark arrays
 are projected in one shot and the in-view subset is compacted to a fixed
 P slots (newest first), so the matcher sees fixed [N] x [P, B] shapes.
+
+Over a sequence axis. ``track_frame`` also takes S sequences at once, the
+lockstep frame of ``parallel/multiseq_runner.py``: images [S, H, W], a
+``LandmarkState`` whose fields lead with S, poses and velocities [S, 7]
+(the intrinsics are shared). Every stage then runs once over all S: the
+frontend and the compaction carry the axis through, the bank is gathered
+per sequence, the guided matching is one launch of the landmark top-2
+kernel with the sequence axis on its grid, and the RANSAC PnP is
+``torch.func.vmap`` of the single-problem solver. Row s of every result is
+what the call on sequence s alone gives, given the same RANSAC draws
+(``sample_idx`` [S, H, 6]); the floating-point sums of the PnP refinement
+are taken by batched products, so the pose agrees to rounding, not bit for
+bit.
 """
 
 from __future__ import annotations
@@ -19,7 +32,7 @@ from ..frontend.features import Features, extract_features
 from ..geometry import cameras as cam_models
 from ..geometry import lie
 from ..ops import hamming
-from ..ops.compact import compact_indices
+from ..ops.compact import compact_indices, take_rows
 from ..solvers import pnp
 
 
@@ -39,13 +52,14 @@ class TrackResult:
 
 def project_landmarks(lm: LandmarkState, T_w_c, cam_name, intr, width,
                       height, z_threshold):
-    """Project all landmarks; mask behind/out-of-image ones."""
-    p_c = lie.se3_apply(lie.se3_inv(T_w_c), lm.pos)
+    """Project all landmarks; mask behind/out-of-image ones. T_w_c [7]
+    against lm.pos [L, 3], or [S, 7] against [S, L, 3]."""
+    p_c = lie.se3_apply(lie.se3_inv(T_w_c).unsqueeze(-2), lm.pos)
     proj = cam_models.project(cam_name, intr, p_c)
     ok = (lm.valid
-          & (p_c[:, 2] >= z_threshold)
-          & (proj[:, 0] >= 0) & (proj[:, 0] <= width)
-          & (proj[:, 1] >= 0) & (proj[:, 1] <= height))
+          & (p_c[..., 2] >= z_threshold)
+          & (proj[..., 0] >= 0) & (proj[..., 0] <= width)
+          & (proj[..., 1] >= 0) & (proj[..., 1] <= height))
     return proj, ok
 
 
@@ -58,10 +72,14 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
                 quality_level=0.01, min_distance: int = 8,
                 rotate_features: bool = True, num_octaves: int = 1,
                 generator: torch.Generator = None,
-                feats: Features = None) -> TrackResult:
+                feats: Features = None, sample_idx=None) -> TrackResult:
     """Track one left image against the map; ``generator`` drives the
-    RANSAC draws. ``feats`` overrides the built-in extraction with
-    pre-computed Features of the left image (a learned frontend's hook)."""
+    RANSAC draws, or ``sample_idx`` [H, 6] gives them. ``feats`` overrides
+    the built-in extraction with pre-computed Features of the left image (a
+    learned frontend's hook). With a leading sequence axis on the image,
+    the landmark state, the poses and the velocity (and on ``sample_idx``)
+    S sequences are tracked at once (module docstring) and every field of
+    the result leads with S."""
     if feats is None:
         feats = extract_features(img_l, num_features=num_features,
                                  quality_level=quality_level,
@@ -73,27 +91,30 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
     proj, in_view = project_landmarks(lm, predicted_pose, cam_name, intr0,
                                       width, height, z_threshold)
     sel, sel_valid = compact_indices(in_view, inview_cap, newest_first=True)
-    sel = torch.clamp(sel, 0, lm.pos.shape[0] - 1)
-    sel_valid = sel_valid & in_view[sel]
+    sel = torch.clamp(sel, 0, lm.pos.shape[-2] - 1)
+    sel_valid = sel_valid & take_rows(in_view, sel)
 
     # ---- guided landmark matching ----
     match_local, m_ok, had_cand = hamming.match_landmarks(
-        feats.bits, feats.valid, lm.bank_bits[sel], lm.bank_valid[sel],
-        feats.corners, proj[sel], sel_valid, max_dist_2d=match_max_dist_2d,
+        feats.bits, feats.valid, take_rows(lm.bank_bits, sel),
+        take_rows(lm.bank_valid, sel), feats.corners, take_rows(proj, sel),
+        sel_valid, max_dist_2d=match_max_dist_2d,
         threshold=match_threshold, ratio=match_ratio)
     local = torch.clamp(match_local, min=0)
-    match_lm = torch.where(m_ok, sel[local], torch.full_like(local, -1))
-    num_matches = m_ok.sum()
+    match_lm = torch.where(m_ok, take_rows(sel, local),
+                           torch.full_like(local, -1))
+    num_matches = m_ok.sum(dim=-1)
 
     # ---- PnP localization ----
     bearings = cam_models.unproject(cam_name, intr0, feats.corners)
-    points = lm.pos[sel][local]
+    points = take_rows(take_rows(lm.pos, sel), local)
     T_ransac, inlier, num_inl, pnp_valid = pnp.ransac_pnp(
         points, bearings, m_ok, pnp_threshold,
-        num_hypotheses=num_hypotheses, generator=generator)
+        num_hypotheses=num_hypotheses, generator=generator,
+        sample_idx=sample_idx)
     enough = (num_matches >= min_matches) & pnp_valid
-    T_w_c = torch.where(enough, T_ransac, predicted_pose)
-    inlier = inlier & enough & m_ok
+    T_w_c = torch.where(enough[..., None], T_ransac, predicted_pose)
+    inlier = inlier & enough[..., None] & m_ok
 
     return TrackResult(
         feats=feats, match_lm=match_lm, inlier=inlier,
@@ -106,7 +127,8 @@ def _motion_err(gate_pose, T_w_c, vel):
     """The motion-model gate statistic (tracking.h:131-133); a non-finite
     pose must read as a FAILED gate, so it gives inf."""
     se3_vel = lie.se3_log(lie.se3_mul(lie.se3_inv(gate_pose), T_w_c))
-    err = torch.sum(torch.abs(se3_vel[:3] - lie.se3_log(vel)[:3]))
+    err = torch.sum(torch.abs(se3_vel[..., :3] - lie.se3_log(vel)[..., :3]),
+                    dim=-1)
     return torch.where(torch.isfinite(err), err,
                        torch.full_like(err, float("inf")))
 

@@ -1,7 +1,10 @@
 """Bundle adjustment: Levenberg-Marquardt with an explicit Schur complement.
 
-Port of ``vslam_tpu/solvers/ba.py``, ``solve_ba_schur`` with its dense
-branch (``_normal_equations`` + ``_schur_solve``): residual
+Port of ``vslam_tpu/solvers/ba.py``: ``solve_ba_schur`` with its dense
+branch (``_normal_equations`` + ``_schur_solve``), and
+``solve_ba_schur_intrinsics``, which frees the two shared intrinsics
+blocks as well (camera row k uses block k % 2; the 16 parameters join the
+reduced camera system after the points are eliminated). Residual
 ``r = uv - project(T_w_c^-1 X)`` per observation, blockwise Huber IRLS
 weights, SE3 right-multiplicative updates, gauge fixed by frozen cameras,
 and the landmark block eliminated explicitly (batched 3x3 inverses, the
@@ -11,7 +14,8 @@ system).
 Pose and point Jacobians are analytic through the SE3 chain; only the
 camera projection's Jacobian dproj/dp_c is forward-mode autodiff, taken as
 three ``torch.func.jvp`` calls over the whole observation batch (one per
-input axis; each output row depends on its own input row only).
+input axis; each output row depends on its own input row only); the
+Jacobian with respect to the 8 intrinsics goes the same way, eight more.
 ``jax.ops.segment_sum`` becomes ``index_add_`` (on the card an atomic sum,
 so the summation order, and the last bits, vary from run to run).
 
@@ -279,3 +283,185 @@ def solve_ba_schur(prob: BAProblem, cam_name: str = "ds", huber=1.0,
     stats = {"initial_cost": init_cost, "final_cost": cost, "lambda": lam,
              "iterations": iters}
     return poses, points, stats
+
+
+def _obs_residual_jac_intr(cam_name, prob: BAProblem, poses, points, intr2):
+    """Like ``_obs_residual_jac`` with the intrinsics as variables: intr2
+    [2, 8] holds the left / right intrinsics and camera row k uses block
+    k % 2. Returns (r [O,2], Jc [O,2,6], Jp [O,2,3], Ji [O,2,8])."""
+    p_c, Rg, _ = _obs_p_c(prob, poses, points)
+    intr = intr2[prob.obs_cam.long() % 2]
+    pred, Jproj = project_jacobian(cam_name, intr, p_c)
+    cols = []
+    for k in range(8):
+        tangent = torch.zeros_like(intr)
+        tangent[:, k] = 1.0
+        cols.append(torch.func.jvp(
+            lambda i: cam_models.project(cam_name, i, p_c), (intr,),
+            (tangent,))[1])
+    Ji_p = torch.stack(cols, dim=-1)                  # [O, 2, 8]
+    raw = prob.obs_uv - pred
+    r = torch.clamp(raw, -RESIDUAL_CLIP, RESIDUAL_CLIP)
+    inside = (torch.abs(raw) < RESIDUAL_CLIP).to(r.dtype)[..., None]
+    Jproj = Jproj * inside
+    Jc = torch.cat(
+        [Jproj, -torch.einsum("oij,ojk->oik", Jproj, lie.hat(p_c))], dim=-1)
+    Jp = -torch.einsum("oij,ojk->oik", Jproj, Rg)
+    return r, Jc, Jp, -Ji_p * inside
+
+
+def _normal_equations_intr(cam_name, prob: BAProblem, poses, points, intr2,
+                           huber):
+    """The ``_normal_equations`` outputs plus the intrinsics blocks
+    (Hii [2,8,8], bi [2,8], Hci [K,6,8], Upi [L,2,3,8])."""
+    K = poses.shape[0]
+    L = points.shape[0]
+    r, Jc, Jp, Ji = (_sanitize(x) for x in _obs_residual_jac_intr(
+        cam_name, prob, poses, points, intr2))
+    sw = _huber_weights(r, huber) * prob.obs_valid.to(r.dtype)
+    r = r * sw[:, None]
+    Jc, Jp, Ji = (J * sw[:, None, None] for J in (Jc, Jp, Ji))
+
+    def outer(A, B):
+        return torch.einsum("oia,oib->oab", A, B)
+
+    def grad(J):
+        return torch.einsum("oia,oi->oa", J, r)
+
+    O_ = r.shape[0]
+    cam = prob.obs_cam.long()
+    pt = prob.obs_point.long()
+    iid = cam % 2
+    cam_pack = _segment_sum(
+        torch.cat([outer(Jc, Jc).reshape(O_, 36), grad(Jc)], 1), cam, K)
+    Hcc, bc = cam_pack[:, :36].reshape(K, 6, 6), cam_pack[:, 36:]
+    pt_pack = _segment_sum(
+        torch.cat([outer(Jp, Jp).reshape(O_, 9), grad(Jp)], 1), pt, L)
+    Hpp, bp = pt_pack[:, :9].reshape(L, 3, 3), pt_pack[:, 9:]
+    U = _segment_sum(outer(Jc, Jp), cam * L + pt, K * L)
+    U = U.reshape(K, L, 6, 3).permute(0, 2, 1, 3)
+    Hii = _segment_sum(outer(Ji, Ji), iid, 2)
+    bi = _segment_sum(grad(Ji), iid, 2)
+    # camera row k couples only with intrinsics block k % 2
+    Hci = _segment_sum(outer(Jc, Ji), cam, K)
+    Upi = _segment_sum(outer(Jp, Ji), pt * 2 + iid, 2 * L).reshape(L, 2, 3, 8)
+    return Hcc, Hpp, U, bc, bp, r, Hii, bi, Hci, Upi
+
+
+def _schur_solve_intr(Hcc, Hpp, U, bc, bp, Hii, bi, Hci, Upi, pose_fixed,
+                      point_valid, lam):
+    """Point-eliminated solve of the camera + intrinsics reduced system, a
+    dense (6K + 16) system."""
+    K = Hcc.shape[0]
+    L = Hpp.shape[0]
+    dtype, dev = Hcc.dtype, Hcc.device
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    pv = point_valid[:, None, None]
+    Hpp_d = torch.where(pv, Hpp + (lam + 1e-8) * eye3, eye3)
+    Hpp_inv = torch.where(pv, torch.linalg.inv_ex(Hpp_d)[0],
+                          torch.zeros_like(Hpp_d))
+
+    T1 = torch.einsum("kalb,lbc->kalc", U, Hpp_inv)          # [K, 6, L, 3]
+    S = -(T1.reshape(6 * K, 3 * L) @ U.reshape(6 * K, 3 * L).T)
+    S = S.reshape(K, 6, K, 6)
+    S.diagonal(0, 0, 2).add_((Hcc + lam * eye6).permute(1, 2, 0))
+
+    # camera-intrinsics coupling: the direct term on block k % 2, the
+    # point-mediated term on both blocks
+    S_ci = -torch.einsum("kalb,lmbe->kame", T1, Upi)         # [K, 6, 2, 8]
+    ks = torch.arange(K, device=dev)
+    S_ci[ks, :, ks % 2, :] += Hci
+
+    Y = torch.einsum("lbc,lnce->lbne", Hpp_inv, Upi)         # [L, 3, 2, 8]
+    S_ii = -torch.einsum("lmbe,lbnf->menf", Upi, Y)          # [2, 8, 2, 8]
+    S_ii.diagonal(0, 0, 2).add_(
+        (Hii + lam * torch.eye(8, dtype=dtype, device=dev)).permute(1, 2, 0))
+
+    y = torch.einsum("lbc,lc->lb", Hpp_inv, bp)
+    rhs_c = -(bc - torch.einsum("kalb,lb->ka", T1, bp))
+    rhs_i = -(bi - torch.einsum("lmbe,lb->me", Upi, y))
+
+    free = (~pose_fixed).repeat_interleave(6)
+    Sf = S.reshape(6 * K, 6 * K)
+    Sf = torch.where(free[:, None] & free[None, :], Sf, torch.zeros_like(Sf))
+    Sf = Sf + torch.diag((~free).to(dtype))
+    Cf = S_ci.reshape(6 * K, 16) * free[:, None].to(dtype)
+    A = torch.cat([torch.cat([Sf, Cf], 1),
+                   torch.cat([Cf.T, S_ii.reshape(16, 16)], 1)], 0)
+    rhs = torch.cat([rhs_c.reshape(-1) * free.to(dtype), rhs_i.reshape(-1)])
+    delta = torch.nan_to_num(torch.linalg.solve_ex(A, rhs)[0])
+    delta_c = delta[:6 * K].reshape(K, 6)
+    delta_i = delta[6 * K:].reshape(2, 8)
+
+    rhs_p = (-bp - torch.einsum("kalb,ka->lb", U, delta_c)
+             - torch.einsum("lmbe,me->lb", Upi, delta_i))
+    delta_p = torch.einsum("lab,lb->la", Hpp_inv, rhs_p)
+    delta_p = torch.where(point_valid[:, None], delta_p,
+                          torch.zeros_like(delta_p))
+    return delta_c, delta_p, delta_i
+
+
+def solve_ba_schur_intrinsics(prob: BAProblem, cam_name: str = "ds",
+                              huber=1.0, max_iters: int = 20,
+                              lam0: float = 1e-4):
+    """LM bundle adjustment that also optimizes the two shared intrinsics
+    blocks (the reference's BundleAdjustmentOptions.optimize_intrinsics).
+    ``prob.intr`` rows 0 and 1 give the starting left / right intrinsics.
+
+    Returns (poses [K,7], points [L,3], intr2 [2,8], stats). The same host
+    loop and exits as ``solve_ba_schur``.
+    """
+    ftol, gtol, step_cap = 1e-6, 0.05, 10.0
+    cam2 = prob.obs_cam.long() % 2
+
+    def cost_of(poses, points, intr2):
+        p_c, _, _ = _obs_p_c(prob, poses, points)
+        pred = cam_models.project(cam_name, intr2[cam2], p_c)
+        r = torch.clamp(prob.obs_uv - pred, -RESIDUAL_CLIP, RESIDUAL_CLIP)
+        return _robust_cost(r, prob.obs_valid, huber)
+
+    dtype, dev = prob.poses.dtype, prob.poses.device
+    free_c = (~prob.pose_fixed)[:, None].to(dtype)
+    free_p = prob.point_valid[:, None].to(dtype)
+    fixed = prob.pose_fixed[:, None]
+    poses, points = prob.poses, prob.points
+    intr2 = torch.stack([prob.intr[0], prob.intr[1]])
+    lam = torch.tensor(lam0, dtype=dtype, device=dev)
+    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    init_cost = cost = cost_of(poses, points, intr2)
+    iters = 0
+    while iters < max_iters:
+        (Hcc, Hpp, U, bc, bp, _, Hii, bi, Hci, Upi) = _normal_equations_intr(
+            cam_name, prob, poses, points, intr2, huber)
+        g_inf = torch.maximum(
+            torch.maximum(torch.max(torch.abs(bc) * free_c),
+                          torch.max(torch.abs(bp) * free_p)),
+            torch.max(torch.abs(bi)))
+        done_grad = g_inf <= gtol * (1.0 + cost)
+        dc, dp, di = _schur_solve_intr(Hcc, Hpp, U, bc, bp, Hii, bi, Hci, Upi,
+                                       prob.pose_fixed, prob.point_valid, lam)
+        new_poses = torch.where(fixed, poses, lie.se3_retract(poses, dc))
+        new_points = points + dp
+        new_intr = intr2 + di
+        new_cost = cost_of(new_poses, new_points, new_intr)
+        dcf = dc * free_c
+        dpf = dp * free_p
+        d_sq = torch.sum(dcf * dcf) + torch.sum(dpf * dpf) + torch.sum(di * di)
+        b_dot = (torch.sum(bc * dcf) + torch.sum(bp * dpf)
+                 + torch.sum(bi * di))
+        pred = 0.5 * (lam * d_sq - b_dot)
+        step_inf = torch.max(torch.abs(dcf))
+        accept, converged, lam, nu = _lm_gain_update(
+            cost, new_cost, lam, nu, pred, step_inf, step_cap, ftol)
+        poses = torch.where(accept, new_poses, poses)
+        points = torch.where(accept, new_points, points)
+        intr2 = torch.where(accept, new_intr, intr2)
+        cost = torch.where(accept, new_cost, cost)
+        iters += 1
+        stuck = ~accept & (lam >= 1e8)
+        if bool(converged | stuck | done_grad):
+            break
+    stats = {"initial_cost": init_cost, "final_cost": cost, "lambda": lam,
+             "iterations": iters}
+    return poses, points, intr2, stats

@@ -16,6 +16,17 @@ two gathers, small batched products and two ``index_add_`` (atomic sums on
 the card: the last bits vary from run to run unless PyTorch's
 deterministic algorithms are on).
 
+Sharding. The solve is map / reduce over the observation axis, and what
+the reference's compiler inserted for a sharded problem is written out
+here: ``solve_ba_cg`` takes one ``BAProblem`` or a list of them
+(``parallel/sharded_ba.shard_problem``: a slice of the observations each,
+everything else replicated, each on its own device). Every shard computes
+its residual blocks, gathers, products and ``index_add_``s; the partial
+``[K, 6]`` / ``[L, 3]`` sums of ``J^T u`` and the partial costs are added
+up on the lead device (the first shard's), which runs the CG and LM
+algebra and sends the CG vector back to the shards. One problem is the
+one-shard case of the same loop.
+
 Gauge fixing masks the fixed cameras' and invalid points' blocks inside
 the operator. The reference's ``lax.while_loop`` is a host loop with the
 same function tolerance, gradient tolerance and stuck exit: one host read
@@ -24,33 +35,45 @@ of the exit flag per LM iteration, none inside the CG loop.
 
 from __future__ import annotations
 
+import functools
+import operator
+
 import torch
 
 from ..geometry import lie
-from .ba import (BAProblem, _huber_weights, _lm_gain_update,
-                 _obs_residual_jac, _residuals, _robust_cost, _sanitize,
-                 _segment_sum)
+from .ba import (_huber_weights, _lm_gain_update, _obs_residual_jac,
+                 _residuals, _robust_cost, _sanitize, _segment_sum)
 
 
-def solve_ba_cg(prob: BAProblem, cam_name: str = "ds", huber=1.0,
-                max_iters: int = 15, cg_iters: int = 25, lam0: float = 1e-3):
-    """LM with inner CG. Returns (poses [K,7], points [L,3], stats dict of
-    0-dim tensors, the LM iteration count and the CG iterations run)."""
+def _total(parts, lead):
+    """The shards' partial results summed on the lead device, in shard
+    order (one shard: that shard's result itself)."""
+    return functools.reduce(operator.add, (p.to(lead) for p in parts))
+
+
+def solve_ba_cg(prob, cam_name: str = "ds", huber=1.0, max_iters: int = 15,
+                cg_iters: int = 25, lam0: float = 1e-3):
+    """LM with inner CG on a ``BAProblem`` or a list of its shards. Returns
+    (poses [K,7], points [L,3], stats dict of 0-dim tensors, the LM
+    iteration count and the CG iterations run), on the first shard's
+    device."""
     ftol = 1e-6
     gtol = 0.05   # relative gradient tolerance (same scale as solvers/ba.py)
     step_cap = 10.0
 
+    shards = list(prob) if isinstance(prob, (list, tuple)) else [prob]
+    prob = shards[0]
     K, L = prob.poses.shape[0], prob.points.shape[0]
     dtype, dev = prob.poses.dtype, prob.poses.device
     free_c = (~prob.pose_fixed)[:, None].to(dtype)       # [K, 1]
     free_p = prob.point_valid[:, None].to(dtype)         # [L, 1]
     fixed = prob.pose_fixed[:, None]
-    cam, pt = prob.obs_cam.long(), prob.obs_point.long()
-    obs_w = prob.obs_valid.to(dtype)
 
     def cost_of(poses, points):
-        return _robust_cost(_residuals(cam_name, prob, poses, points),
-                            prob.obs_valid, huber)
+        return _total([_robust_cost(
+            _residuals(cam_name, sh, poses.to(sh.poses.device),
+                       points.to(sh.points.device)), sh.obs_valid, huber)
+            for sh in shards], dev)
 
     def dot(a, b):
         return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
@@ -61,28 +84,40 @@ def solve_ba_cg(prob: BAProblem, cam_name: str = "ds", huber=1.0,
     init_cost = cost = cost_of(poses, points)
     iters = 0
     while iters < max_iters:
-        r, Jc, Jp = _obs_residual_jac(cam_name, prob, poses, points)
-        # non-finite rows (degenerate Jacobians of outliers) contribute zero
-        r, Jc, Jp = _sanitize(r), _sanitize(Jc), _sanitize(Jp)
-        sw = _huber_weights(r, huber) * obs_w
-        r = r * sw[:, None]
-        Jc = Jc * sw[:, None, None]
-        Jp = Jp * sw[:, None, None]
+        blocks = []   # per shard: weighted r, Jc, Jp and the gather indices
+        for sh in shards:
+            d = sh.poses.device
+            r, Jc, Jp = _obs_residual_jac(cam_name, sh, poses.to(d),
+                                          points.to(d))
+            # non-finite rows (degenerate Jacobians of outliers) contribute
+            # zero
+            r, Jc, Jp = _sanitize(r), _sanitize(Jc), _sanitize(Jp)
+            sw = _huber_weights(r, huber) * sh.obs_valid.to(dtype)
+            blocks.append((r * sw[:, None], Jc * sw[:, None, None],
+                           Jp * sw[:, None, None], sh.obs_cam.long(),
+                           sh.obs_point.long()))
 
-        def JTu(u):
-            return (_segment_sum(torch.einsum("oia,oi->oa", Jc, u), cam, K)
-                    * free_c,
-                    _segment_sum(torch.einsum("oia,oi->oa", Jp, u), pt, L)
-                    * free_p)
+        def JTu(us):
+            """J^T u from the per-shard u [O_s, 2]."""
+            hc = _total([_segment_sum(torch.einsum("oia,oi->oa", Jc, u),
+                                      cam, K)
+                         for (_, Jc, _, cam, _), u in zip(blocks, us)], dev)
+            hp = _total([_segment_sum(torch.einsum("oia,oi->oa", Jp, u),
+                                      pt, L)
+                         for (_, _, Jp, _, pt), u in zip(blocks, us)], dev)
+            return hc * free_c, hp * free_p
 
         def Hv(v):
             vc, vp = v[0] * free_c, v[1] * free_p
-            Jv = (torch.einsum("oia,oa->oi", Jc, vc[cam])
-                  + torch.einsum("oia,oa->oi", Jp, vp[pt]))
+            Jv = []
+            for _, Jc, Jp, cam, pt in blocks:
+                d = Jc.device
+                Jv.append(torch.einsum("oia,oa->oi", Jc, vc.to(d)[cam])
+                          + torch.einsum("oia,oa->oi", Jp, vp.to(d)[pt]))
             hc, hp = JTu(Jv)
             return hc + lam * vc, hp + lam * vp
 
-        g = JTu(r)
+        g = JTu([blk[0] for blk in blocks])
         b = (-g[0], -g[1])
         g_inf = torch.maximum(torch.max(torch.abs(b[0])),
                               torch.max(torch.abs(b[1])))

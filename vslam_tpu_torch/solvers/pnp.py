@@ -7,7 +7,10 @@ sign branches scored), all hypotheses scored against all correspondences
 with opengv's angular threshold, then two Gauss-Newton rounds on the best
 hypothesis (inliers, then Cauchy IRLS weights over all valid matches) with
 inlier re-selection. The vmapped per-hypothesis solves become a written-out
-batch dimension over H.
+batch dimension over H. A leading sequence axis (the multi-sequence path:
+S independent problems) goes through ``torch.func.vmap`` of the same
+single-problem code, as the reference vmaps its tracking step: every
+operation runs once over all S, none in a Python loop.
 
 Random numbers: torch cannot reproduce ``jax.random.gumbel``. The draws
 come from an explicit ``torch.Generator``; ``ransac_pnp`` also takes the
@@ -33,12 +36,16 @@ def ransac_threshold(px: float = 3.0, focal: float = 500.0) -> float:
 def sample_minimal(valid, num_hyp: int, sample_size: int,
                    generator: torch.Generator = None):
     """[H, S] indices of distinct valid correspondences per hypothesis
-    (Gumbel top-k over the validity mask; invalid entries score -inf)."""
-    n = valid.shape[0]
-    u = torch.rand((num_hyp, n), generator=generator, device=valid.device)
+    (Gumbel top-k over the validity mask; invalid entries score -inf).
+    ``valid`` [..., N] gives [..., H, S]: one draw from ``generator`` for
+    all leading problems."""
+    n = valid.shape[-1]
+    u = torch.rand(valid.shape[:-1] + (num_hyp, n), generator=generator,
+                   device=valid.device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     g = -torch.log(-torch.log(u))
-    g = torch.where(valid[None, :], g, torch.full_like(g, float("-inf")))
+    g = torch.where(valid[..., None, :], g,
+                    torch.full_like(g, float("-inf")))
     return top_k(g, sample_size)[1]
 
 
@@ -175,9 +182,24 @@ def ransac_pnp(points_w, bearings, valid, threshold, num_hypotheses: int = 256,
 
     points_w [N, 3], bearings [N, 3] (unit, camera frame), valid [N] bool.
     ``sample_idx`` [H, 6] overrides the Gumbel draws from ``generator``.
+    With a leading sequence axis on all of them ([S, N, 3], [S, N],
+    ``sample_idx`` [S, H, 6]) the S problems are solved at once and every
+    result has the leading S.
     """
     if sample_idx is None:
         sample_idx = sample_minimal(valid, num_hypotheses, 6, generator)
+    if points_w.dim() == 3:
+        return torch.func.vmap(
+            lambda p, b, v, i: _ransac_pnp_one(p, b, v, i, threshold,
+                                               min_inliers, refine_iters))(
+            points_w, bearings, valid, sample_idx)
+    return _ransac_pnp_one(points_w, bearings, valid, sample_idx, threshold,
+                           min_inliers, refine_iters)
+
+
+def _ransac_pnp_one(points_w, bearings, valid, sample_idx, threshold,
+                    min_inliers, refine_iters):
+    """``ransac_pnp`` on one problem with its [H, 6] sample indices."""
     idx = sample_idx.to(torch.int64)
     Rs, ts = _dlt_pose(points_w[idx], bearings[idx])   # [H,2,3,3], [H,2,3]
     # degenerate samples can yield NaN hypotheses; make them finite garbage

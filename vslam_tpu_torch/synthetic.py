@@ -407,6 +407,26 @@ def landmark_ties(case: str, seed: int = 11):
             lxy.astype(np.float32), lv, 20.0)
 
 
+def landmark_ties_stacked(cases=LANDMARK_TIE_CASES, seed: int = 11):
+    """``landmark_ties`` of several cases as one stack with a leading
+    sequence axis, one case per sequence: every array [S, ...], the
+    landmark axis padded to the largest case with invalid landmarks far
+    outside every gate. Returns the seven arrays and max_dist_2d."""
+    parts = [landmark_ties(c, seed + k) for k, c in enumerate(cases)]
+    p_max = max(x[3].shape[0] for x in parts)
+
+    def pad(a, fill):
+        out = np.full((p_max,) + a.shape[1:], fill, a.dtype)
+        out[:a.shape[0]] = a
+        return out
+
+    stacked = []
+    for kp, kv, kxy, bank, bv, lxy, lv, _ in parts:
+        stacked.append((kp, kv, kxy, pad(bank, 0), pad(bv, False),
+                        pad(lxy, -1000.0), pad(lv, False)))
+    return tuple(np.stack(x) for x in zip(*stacked)) + (parts[0][7],)
+
+
 # ---------------------------------------------------------------------------
 # Large-map solver problems (tests/test_ba_scale.py's orbit, in numpy) and
 # datasets on disk
@@ -488,6 +508,55 @@ def make_big_problem(n_pairs=4096, pts_per_kf=16, obs_per_pt=16, noise=0.3,
         point_valid=np.ones(L, bool), obs_cam=o["obs_cam"],
         obs_point=o["obs_point"], obs_uv=o["uv"], obs_valid=o["in_img"])
     return prob, o["poses_gt"], o["points_gt"]
+
+
+def make_intrinsics_problem(seed=6, n_cams=6, n_pts=120, noise_px=0.1,
+                            perturb=0.01, K_pad=8, L_pad=160):
+    """tests/test_ba.py::test_ba_joint_intrinsics_recovery's problem with
+    numpy draws: cameras along a line looking at +z, every camera sees
+    every point, the first two cameras fixed for gauge, and both intrinsics
+    blocks corrupted (fx, fy +2%, cx +3 px; the truth is ORBIT_PINHOLE).
+    Returns the fields of a ``BAProblem`` as numpy arrays."""
+    import torch
+
+    from .geometry import lie
+
+    rng = np.random.RandomState(seed)
+    t = np.stack([np.linspace(0, 2.0, n_cams), np.zeros(n_cams),
+                  np.zeros(n_cams)], -1)
+    q = lie.so3_exp_quat(torch.as_tensor(
+        rng.normal(0, 0.02, (n_cams, 3)), dtype=torch.float32)).numpy()
+    poses_gt = np.concatenate([t, q], -1).astype(np.float32)
+    points_gt = rng.uniform([-3, -2, 4.0], [5, 2, 9.0],
+                            (n_pts, 3)).astype(np.float32)
+    obs_cam = np.repeat(np.arange(n_cams), n_pts).astype(np.int32)
+    obs_point = np.tile(np.arange(n_pts), n_cams).astype(np.int32)
+    T = poses_gt[obs_cam].astype(np.float64)
+    qi = T[:, 3:7] * np.array([-1.0, -1, -1, 1])
+    pc = _quat_rotate_np(qi, points_gt[obs_point] - T[:, :3])
+    uv = _project_pinhole_np(ORBIT_PINHOLE, pc)
+    uv = (uv + rng.normal(0, noise_px, uv.shape)).astype(np.float32)
+    dpose = rng.normal(0, perturb, (n_cams, 6)).astype(np.float32)
+    dpose[:2] = 0.0
+    poses0 = lie.se3_retract(torch.as_tensor(poses_gt),
+                             torch.as_tensor(dpose)).numpy()
+    points0 = points_gt + rng.normal(0, 2 * perturb, points_gt.shape)
+    O, pad = uv.shape[0], 37
+    ident = np.array([0, 0, 0, 0, 0, 0, 1], np.float32)
+    bad = ORBIT_PINHOLE * np.array([1.02, 1.02, 1, 1, 1, 1, 1, 1],
+                                   np.float32)
+    bad[2] += 3.0
+    return dict(
+        poses=np.concatenate([poses0, np.tile(ident, (K_pad - n_cams, 1))]),
+        pose_fixed=(np.arange(K_pad) >= n_cams) | (np.arange(K_pad) < 2),
+        intr=np.tile(bad, (K_pad, 1)),
+        points=np.concatenate([points0, np.zeros((L_pad - n_pts, 3))]).astype(
+            np.float32),
+        point_valid=np.arange(L_pad) < n_pts,
+        obs_cam=np.concatenate([obs_cam, np.zeros(pad, np.int32)]),
+        obs_point=np.concatenate([obs_point, np.zeros(pad, np.int32)]),
+        obs_uv=np.concatenate([uv, np.zeros((pad, 2), np.float32)]),
+        obs_valid=np.arange(O + pad) < O)
 
 
 def make_orbit_state(n_pairs=160, pts_per_kf=8, obs_per_pt=8, noise=0.3,
