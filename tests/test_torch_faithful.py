@@ -601,8 +601,9 @@ def test_unported_settings_raise_and_name_roadmap(seq, field, value,
         assert mesh.shape == {"data": 4}
     slam.process_frame(*seq.images[1])
     assert slam._pending_ba is None
-    assert not hasattr(SlamSystem, "render_overlay")
-    assert not hasattr(SlamSystem, "reprojection_report")
+    # the reporting hooks, once unported, are there (test_torch_reporting)
+    assert callable(SlamSystem.render_overlay)
+    assert callable(SlamSystem.reprojection_report)
 
 
 def test_ba_optimize_intrinsics_merges_refined_intrinsics(seq, tmp_path):

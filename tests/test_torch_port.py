@@ -3,10 +3,11 @@
 - ``vslam_tpu_torch`` imports neither JAX nor ``vslam_tpu`` (the machine
   with the card has no JAX);
 - the host modules it copies (config, calibration I/O, ATE, the BRIEF
-  pattern, the synthetic world generators, the loop detector, the
-  vocabulary's numpy part with its DBoW2 text writer, the map and dataset
-  readers, the stage timers and the command line's tuner) match their
-  originals;
+  pattern, the synthetic world generators and photometric/texture
+  generators, the loop detector, the vocabulary's numpy part with its
+  DBoW2 text writer, the map and dataset readers, the stage timers, the
+  command line's tuner, the viewers, feature tracks, the native binding
+  and the calibration grid) match their originals;
 - state constructors, compaction and the tie-stable top-k match the JAX
   package's; device selection refuses a missing card.
 """
@@ -34,11 +35,17 @@ from vslam_tpu.eval import ate as jate
 from vslam_tpu.io import calib as jcalib
 from vslam_tpu.io import euroc as jeuroc
 from vslam_tpu.io import map_io as jmap_io
+from vslam_tpu.io import native as jnative
 from vslam_tpu.loop import detector as jdetector
 from vslam_tpu.loop import vocabulary as jvocab
 from vslam_tpu.ops import compact as jcompact
 from vslam_tpu.ops import pattern as jpattern
+from vslam_tpu.tools import calibrate as jcalibrate
 from vslam_tpu.utils import metrics as jmetrics
+from vslam_tpu.utils import tracks as jtracks
+from vslam_tpu.viz import html_viewer as jhtml
+from vslam_tpu.viz import overlays as joverlays
+from vslam_tpu.viz import plot_map as jplot
 import vslam_tpu_torch
 from vslam_tpu_torch import cli as tcli
 from vslam_tpu_torch import config as tconfig
@@ -50,11 +57,17 @@ from vslam_tpu_torch.eval import ate as tate
 from vslam_tpu_torch.io import calib as tcalib
 from vslam_tpu_torch.io import euroc as teuroc
 from vslam_tpu_torch.io import map_io as tmap_io
+from vslam_tpu_torch.io import native as tnative
 from vslam_tpu_torch.loop import detector as tdetector
 from vslam_tpu_torch.loop import vocabulary as tvocab
 from vslam_tpu_torch.ops import compact as tcompact
 from vslam_tpu_torch.ops import pattern as tpattern
+from vslam_tpu_torch.tools import calibrate as tcalibrate
 from vslam_tpu_torch.utils import metrics as tmetrics
+from vslam_tpu_torch.utils import tracks as ttracks
+from vslam_tpu_torch.viz import html_viewer as thtml
+from vslam_tpu_torch.viz import overlays as toverlays
+from vslam_tpu_torch.viz import plot_map as tplot
 
 
 def test_port_imports_no_jax():
@@ -74,7 +87,19 @@ def test_port_imports_no_jax():
                      "vslam_tpu_torch.parallel.mesh",
                      "vslam_tpu_torch.parallel.sharded_ba",
                      "vslam_tpu_torch.parallel.multiseq",
-                     "vslam_tpu_torch.parallel.multiseq_runner"):
+                     "vslam_tpu_torch.parallel.multiseq_runner",
+                     "vslam_tpu_torch.models.superpoint",
+                     "vslam_tpu_torch.models.learned_frontend",
+                     "vslam_tpu_torch.pipeline.projections",
+                     "vslam_tpu_torch.pipeline.sfm",
+                     "vslam_tpu_torch.solvers.relative_pose",
+                     "vslam_tpu_torch.tools.calibrate",
+                     "vslam_tpu_torch.tools.view_dataset",
+                     "vslam_tpu_torch.viz.overlays",
+                     "vslam_tpu_torch.viz.html_viewer",
+                     "vslam_tpu_torch.viz.plot_map",
+                     "vslam_tpu_torch.io.native",
+                     "vslam_tpu_torch.utils.tracks"):
             assert must in names, must
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "vslam_tpu"))
@@ -104,7 +129,8 @@ def test_no_source_file_of_the_port_names_jax():
     pkg = os.path.dirname(vslam_tpu_torch.__file__)
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
              if f.endswith(".py")]
-    files.append(os.path.join(os.path.dirname(pkg), "chip_smoke.py"))
+    files += [os.path.join(os.path.dirname(pkg), f)
+              for f in ("chip_smoke.py", "tools/learned_vo_sweep.py")]
     assert len(files) > 50
     assert sum(os.sep + "parallel" + os.sep in f for f in files) == 5
     for path in files:
@@ -275,7 +301,20 @@ def test_synthetic_vocab_and_transform_equal():
     (tmetrics, jmetrics, ("StageTimer", "MetricsLogger")),
     (tvocab, jvocab, ("_vocab_from_flat", "save_dbow2_text")),
     (tcli, jcli, ("_make_tuner",)),
-], ids=["map_io", "euroc", "metrics", "vocabulary_text", "cli_tuner"])
+    (toverlays, joverlays, ("_to_rgb", "_draw_cross", "_draw_circle",
+                            "_draw_line", "draw_keypoints", "draw_matches",
+                            "draw_reprojections", "save_png")),
+    (thtml, jhtml, ("_ds", "write_html")),
+    (tplot, jplot, ("plot",)),
+    (ttracks, jtracks, ("UnionFind", "build_tracks", "tracks_in_images")),
+    (tnative, jnative, ("_load", "available", "decode_gray",
+                        "parse_vocab_text")),
+    (tcalibrate, jcalibrate, ("aprilgrid_points",)),
+    (tsyn, jsyn, ("_splat", "degrade", "multiscale_texture",
+                  "render_plane_view")),
+], ids=["map_io", "euroc", "metrics", "vocabulary_text", "cli_tuner",
+        "overlays", "html_viewer", "plot_map", "tracks", "native",
+        "calibration_grid", "generators"])
 def test_host_copies_of_the_io_slice_are_the_originals(port, orig, names):
     for name in names:
         assert inspect.getsource(getattr(port, name)) == \
@@ -283,8 +322,8 @@ def test_host_copies_of_the_io_slice_are_the_originals(port, orig, names):
 
 
 def test_cli_flags_are_the_reference_s_minus_the_unported():
-    """The port's parser accepts the reference's flags except those that
-    need unported modules (the HTML viewer, the overlays), plus --device."""
+    """The port's parser accepts every flag of the reference's, plus
+    --device."""
     def flags(mod):
         src = inspect.getsource(mod.main)
         tree = ast.parse(textwrap.dedent(src))
@@ -292,8 +331,7 @@ def test_cli_flags_are_the_reference_s_minus_the_unported():
                 if isinstance(n, ast.Call)
                 and getattr(n.func, "attr", "") == "add_argument"}
 
-    assert flags(jcli) - flags(tcli) == {"--viz-html", "--overlay-every",
-                                         "--overlay-dir"}
+    assert flags(jcli) - flags(tcli) == set()
     assert flags(tcli) - flags(jcli) == {"--device"}
 
 
@@ -317,3 +355,16 @@ def test_parallel_host_parts_match_the_reference():
         mesh = make_mesh(n, axes=("data", "model"), devices=["cpu"] * n)
         assert mesh.devices.shape == want
         assert make_mesh(n, devices=["cpu"] * n).shape == {"data": n}
+
+
+def test_host_copies_keep_the_originals_values():
+    """Module-level values of the copies: the overlay colours, the viewer's
+    page and caps, the native library's path (resolved from the repository
+    root in both packages)."""
+    for name in ("GREEN", "RED", "BLUE", "YELLOW"):
+        np.testing.assert_array_equal(getattr(toverlays, name),
+                                      getattr(joverlays, name))
+    assert thtml._TEMPLATE == jhtml._TEMPLATE
+    assert thtml._MAX_LANDMARKS == jhtml._MAX_LANDMARKS
+    assert tnative._LIB_PATH == jnative._LIB_PATH
+    assert tnative._MAX_BYTES == jnative._MAX_BYTES

@@ -9,11 +9,11 @@ executable's flags (slam.cpp:346-362):
   --show-gui      accepted for compatibility (headless; prints progress)
 
 plus framework extras: --config (SlamConfig JSON), --max-frames, --no-loop,
---no-reloc, --metrics (JSONL per-frame metrics), --trace, --driver,
+--no-reloc, --metrics (JSONL per-frame metrics), --viz-html (an HTML
+map/trajectory viewer), --trace, --driver, --overlay-every/--overlay-dir
+(reprojection overlay PNGs during a faithful-driver run; needs Pillow),
 --tune-file, and the port's --device (the card unless ``cpu`` is asked
-for; without a card the default raises). The HTML viewer and the overlay
-flags of the reference are not ported yet (ROADMAP.md Queue 1) and are
-not accepted.
+for; without a card the default raises).
 
 Usage: python -m vslam_tpu_torch.cli --dataset-path ... --cam-calib ...
 """
@@ -98,7 +98,20 @@ def _finish(args, seq, fids, est_pos, est_poses, lm_valid, lm_pos):
     map_io.save_map(out, cams, lms, est_pos, gt_out, ate_val)
     print(f"Saved map as {out} ({len(cams)} cameras, {len(lms)} landmarks)",
           file=sys.stderr)
-    return ate_val
+    return ate_val, gt_out
+
+
+def _write_viewer(args, traj, lm_valid, lm_pos, gt_out, est_poses, inliers,
+                  is_keyframe, loop_xyz, title):
+    """``--viz-html``: the interactive map/trajectory viewer."""
+    from .viz import html_viewer
+
+    html_viewer.write_html(
+        args.viz_html, traj, landmarks=lm_pos[lm_valid],
+        gt=gt_out if len(gt_out) else None, keyframes=est_poses,
+        inliers=inliers, is_keyframe=is_keyframe, loop_edges=loop_xyz,
+        title=title)
+    print(f"Wrote viewer: {args.viz_html}", file=sys.stderr)
 
 
 def main(argv=None):
@@ -113,6 +126,8 @@ def main(argv=None):
     p.add_argument("--no-loop", action="store_true")
     p.add_argument("--no-reloc", action="store_true")
     p.add_argument("--metrics", default="")
+    p.add_argument("--viz-html", default="", help="write an interactive "
+                   "HTML map/trajectory viewer (Pangolin-loop replacement)")
     p.add_argument("--trace", default="", help="capture a torch.profiler "
                    "trace (Chrome trace, Perfetto-viewable) of the frame "
                    "loop into this directory")
@@ -122,6 +137,15 @@ def main(argv=None):
                    "closure, reference semantics); 'streaming' = the "
                    "streaming driver (loop closure and relocalization at "
                    "polls; they need --voc-path)")
+    p.add_argument("--overlay-every", type=int, default=0, help="with "
+                   "--overlay-dir: write a live reprojection overlay PNG "
+                   "of every Nth frame during the run (detected keypoints "
+                   "+ matched landmarks projected through the frame's "
+                   "final pose + residual lines), the headless "
+                   "equivalent of the reference's draw_image_overlay "
+                   "inspection (slam.cpp:534-771). Faithful driver only; "
+                   "needs Pillow.")
+    p.add_argument("--overlay-dir", default="")
     p.add_argument("--tune-file", default="", help="JSON file of "
                    "{param: value} polled during the run; changed values "
                    "are applied live via set_param, the headless "
@@ -175,6 +199,16 @@ def main(argv=None):
             t_frame = time.perf_counter()
             info = slam.process_frame(img_l, img_r)
             info["ms"] = round(1000 * (time.perf_counter() - t_frame), 2)
+            if (args.overlay_every and args.overlay_dir
+                    and i % args.overlay_every == 0):
+                import os
+
+                from .viz import overlays
+
+                os.makedirs(args.overlay_dir, exist_ok=True)
+                overlays.save_png(slam.render_overlay(img_l),
+                                  os.path.join(args.overlay_dir,
+                                               f"frame_{i:05d}.png"))
             if metrics_f:
                 metrics_f.write(json.dumps(info) + "\n")
             if info["kind"] == "keyframe" or i % 50 == 0:
@@ -189,8 +223,19 @@ def main(argv=None):
     global LAST_DRIVER
     LAST_DRIVER = slam
     fids, est_pos, est_poses = slam.keyframe_trajectory()
-    _finish(args, seq, fids, est_pos, est_poses,
-            slam.lm.valid.cpu().numpy(), slam.lm.pos.cpu().numpy())
+    lm_valid, lm_pos = slam.lm.valid.cpu().numpy(), slam.lm.pos.cpu().numpy()
+    ate_val, gt_out = _finish(args, seq, fids, est_pos, est_poses, lm_valid,
+                              lm_pos)
+    if args.viz_html:
+        pl = slam.kf.pose_l.cpu().numpy()
+        _write_viewer(
+            args, np.asarray(slam.trajectory)[:, :3], lm_valid, lm_pos,
+            gt_out, est_poses,
+            inliers=[s.get("inliers", 0) for s in slam.stats],
+            is_keyframe=[s["kind"] == "keyframe" for s in slam.stats],
+            loop_xyz=[(pl[a, :3], pl[b, :3]) for a, b in slam.loop_edges],
+            title=f"vslam_tpu_torch - {args.map_name} (ATE {ate_val:.3f} m)"
+            if ate_val == ate_val else f"vslam_tpu_torch - {args.map_name}")
     return 0
 
 
@@ -250,9 +295,18 @@ def _main_streaming(args):
     global LAST_DRIVER
     LAST_DRIVER = slam
     fids, est_pos, est_poses = slam.keyframe_trajectory()
-    _finish(args, seq, fids, est_pos, est_poses,
-            slam.state.lm.valid.cpu().numpy(),
-            slam.state.lm.pos.cpu().numpy())
+    lm_valid = slam.state.lm.valid.cpu().numpy()
+    lm_pos = slam.state.lm.pos.cpu().numpy()
+    _, gt_out = _finish(args, seq, fids, est_pos, est_poses, lm_valid, lm_pos)
+    if args.viz_html:
+        pl = slam.state.kf.pose_l.cpu().numpy()
+        _write_viewer(
+            args, res["trajectory"][:, :3], lm_valid, lm_pos, gt_out,
+            est_poses, inliers=res["inliers"],
+            is_keyframe=res["is_keyframe"],
+            loop_xyz=[(pl[a, :3], pl[b, :3])
+                      for a, b in getattr(slam, "loop_edges", [])],
+            title=f"vslam_tpu_torch (streaming) - {args.map_name}")
     return 0
 
 

@@ -11,9 +11,9 @@ too.
 
 Image decoding: binary PGM (``P5``, 8-bit) is decoded here with numpy, so
 a dataset of ``.pgm`` files needs no imaging library; every other format
-goes through PIL, and a missing PIL raises (a frame is never blank). The
-reference's native C++ decoder is not part of the port. A background
-prefetch thread keeps decode off the critical path.
+goes through the native C++ decoder (``io/native.py``) where its library
+loads, else through PIL, and a missing PIL raises (a frame is never
+blank). A background prefetch thread keeps decode off the critical path.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from . import native
 
 
 @dataclasses.dataclass
@@ -107,7 +109,8 @@ def load_sample_dir(path: str) -> EurocSequence:
 
 
 # ---------------------------------------------------------------------------
-# Image decoding (binary PGM with numpy, everything else through PIL)
+# Image decoding (binary PGM with numpy, everything else through the
+# native C++ decoder when it loads, else PIL)
 # ---------------------------------------------------------------------------
 
 def _decode_pil(path: str) -> np.ndarray:
@@ -154,7 +157,8 @@ def load_image(path: str) -> np.ndarray:
         magic = f.read(2)
         if magic == b"P5":
             return _decode_pgm(magic + f.read(), path)
-    return _decode_pil(path)
+    img = native.decode_gray(path)   # None: no library, or not a JPEG
+    return img if img is not None else _decode_pil(path)
 
 
 def save_pgm(path: str, img) -> None:

@@ -23,6 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..io import native
+
 
 @dataclasses.dataclass
 class Vocabulary:
@@ -346,7 +348,13 @@ def load_dbow2_text(path: str) -> Vocabulary:
 
     Line 1: "k L scoring_id weighting_id". Then one line per non-root node:
     "parent_id is_leaf b0 .. b31 weight" with 32 descriptor bytes.
+    Uses the native C++ parser where its library loads (a ~1M-line file),
+    else numpy.
     """
+    out = native.parse_vocab_text(path)   # None without the library
+    if out is not None:
+        return _vocab_from_flat(*out)
+
     with open(path) as f:
         header = f.readline().split()
         k, depth = int(header[0]), int(header[1])

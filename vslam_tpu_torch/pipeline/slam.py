@@ -29,8 +29,9 @@ the window problem on ``cuda:(ba_device % device count)`` (the system's
 own device on the CPU) and brings the selection tables and the results
 home before the merge; with one card that is the system's card.
 ``gba_mesh_devices > 1`` shards the global BA's observations when the
-process has that many devices (``ba_global.gba_mesh``). The overlay and
-reprojection-report hooks are absent.
+process has that many devices (``ba_global.gba_mesh``). ``render_overlay``
+and ``reprojection_report`` give the reference's live overlay and its
+per-observation report (``pipeline/projections.py``).
 """
 
 from __future__ import annotations
@@ -513,6 +514,7 @@ class SlamSystem:
         cfg = self.cfg
         res = self._run_tracking(img_l)
         res, ok = self._apply_motion_gate(res)
+        self._last_res = res  # device handles only (live overlay hook)
 
         if ok:
             pose = res.T_w_c
@@ -540,6 +542,7 @@ class SlamSystem:
 
         res = self._run_tracking(img_l)
         res, ok = self._apply_motion_gate(res)
+        self._last_res = res  # device handles only (live overlay hook)
         if ok or not cfg.enable_relocalization:
             pose = res.T_w_c if self._scalars["pnp_ok"] else self._lost_pose()
         else:
@@ -699,6 +702,46 @@ class SlamSystem:
             cam_name=self.cam_name, huber=self.cfg.ba_huber_px,
             mesh=ba_global.gba_mesh(self.cfg))
         return stats
+
+    def render_overlay(self, img_l) -> np.ndarray:
+        """Live reprojection overlay of the LAST processed frame: detected
+        keypoints (crosses), matched landmarks projected through the
+        frame's final pose (circles), residual lines: the headless
+        equivalent of watching the reference's draw_image_overlay mid-run
+        (slam.cpp:534-771). Returns an RGB uint8 image; wired to
+        ``cli.py --overlay-every/--overlay-dir``."""
+        from ..geometry import cameras as cam_models
+        from ..viz import overlays
+
+        img = img_l.cpu().numpy() if torch.is_tensor(img_l) else \
+            np.asarray(img_l)
+        res = getattr(self, "_last_res", None)
+        if res is None:
+            return overlays.draw_keypoints(img, np.zeros((0, 2)))
+        pose = self.track.current_pose
+        pts = self.lm.pos[torch.clamp(res.match_lm, min=0).long()]
+        p_c = lie.se3_apply(lie.se3_inv(pose), pts)
+        proj = cam_models.project(self.cam_name, self.intr0, p_c)
+        corners, valid, match_lm, proj = (
+            t.cpu().numpy() for t in (res.feats.corners, res.feats.valid,
+                                      res.match_lm, proj))
+        matched = valid & (match_lm >= 0)
+        out = overlays.draw_keypoints(img, corners, valid)
+        return overlays.draw_reprojections(out, corners[matched],
+                                           proj[matched])
+
+    def reprojection_report(self):
+        """Per-observation reprojection errors + outlier flags
+        (compute_projections equivalent, slam.cpp:1461-1507)."""
+        from . import projections
+
+        self._merge_pending_ba(force=True)
+        self._merge_pending_gba(force=True)
+        return projections.compute_projections(
+            self.kf, self.lm, self.intr0, self.intr1,
+            cam_name=self.cam_name, O=self.cfg.window_obs,
+            normal_px=self.cfg.pnp_inlier_thresh_px,
+            z_threshold=self.cfg.cam_z_threshold)
 
     # ------------------------------------------------------------------
     def keyframe_trajectory(self):

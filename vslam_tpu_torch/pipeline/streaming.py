@@ -97,12 +97,17 @@ class StreamingVO:
     features and a ``KeyframeEvent`` appended to ``self.events``.
     ``store_features`` keeps the newest frame's features in the state for
     relocalization (and then a lost frame does not become a keyframe).
-    Without either it runs plain VO."""
+    Without either it runs plain VO. ``feature_fn`` (an image -> ``Features``
+    callable with ``cfg.num_features`` slots, e.g.
+    ``models.learned_frontend.make_feature_fn``) replaces the built-in
+    extraction of the left image every frame and of the right image on
+    keyframes."""
 
     def __init__(self, calib: Calibration,
                  config: Optional[SlamConfig] = None,
                  max_frames: int = 8192, vocabulary=None,
-                 store_features: bool = False, device="cuda"):
+                 store_features: bool = False, device="cuda",
+                 feature_fn=None):
         self.cfg = config or SlamConfig()
         self.calib = calib
         self.cam_name = calib.cam_types[0]
@@ -112,6 +117,7 @@ class StreamingVO:
         self.dvoc = (vocab_mod.DeviceVocabulary(vocabulary, self.device)
                      if vocabulary is not None else None)
         self.store_features = store_features
+        self.feature_fn = feature_fn
         self.generator = torch.Generator(device=self.device)
         self.reset()
 
@@ -191,10 +197,15 @@ class StreamingVO:
         window obs dropped)."""
         cfg, P = self.cfg, self.tune
         K = st.kf.frame_id.shape[0]
-        feats_r = extract_features(
-            img_r, num_features=cfg.num_features,
-            quality_level=P["quality_level"], min_distance=cfg.min_distance,
-            rotate_features=cfg.rotate_features, num_octaves=cfg.num_octaves)
+        if self.feature_fn is not None:
+            feats_r = self.feature_fn(img_r)
+        else:
+            feats_r = extract_features(
+                img_r, num_features=cfg.num_features,
+                quality_level=P["quality_level"],
+                min_distance=cfg.min_distance,
+                rotate_features=cfg.rotate_features,
+                num_octaves=cfg.num_octaves)
         stereo_j, stereo_inl = kf_mod.stereo_match(
             res.feats, feats_r, st.T_0_1, st.intr0, st.intr1,
             cam_name=self.cam_name, threshold=P["match_max_dist"],
@@ -255,7 +266,9 @@ class StreamingVO:
             min_matches=P["ransac_min_matches"],
             quality_level=P["quality_level"], min_distance=cfg.min_distance,
             rotate_features=cfg.rotate_features, num_octaves=cfg.num_octaves,
-            generator=self.generator)
+            generator=self.generator,
+            feats=(self.feature_fn(img_l) if self.feature_fn is not None
+                   else None))
         ok = res.pnp_ok
         # on failure coast on the motion model
         pose = torch.where(ok, res.T_w_c, predicted)
@@ -378,14 +391,14 @@ class StreamingSLAM(StreamingVO):
 
     def __init__(self, calib: Calibration, config: Optional[SlamConfig],
                  vocabulary, max_frames: int = 8192, poll_every: int = 16,
-                 device="cuda"):
+                 device="cuda", feature_fn=None):
         if vocabulary is None:
             raise ValueError("StreamingSLAM requires a pretrained "
                              "vocabulary (loop.vocabulary.train)")
         cfg = config or SlamConfig()
         super().__init__(calib, cfg, max_frames, vocabulary=vocabulary,
                          store_features=cfg.enable_relocalization,
-                         device=device)
+                         device=device, feature_fn=feature_fn)
         from ..loop.detector import LoopDetector
 
         self.poll_every = poll_every

@@ -127,6 +127,15 @@ def _project_np(cam_type, intr, p):
         torch.as_tensor(np.asarray(p), dtype=torch.float32)).numpy()
 
 
+def _splat(img, uv, intensity, rng):
+    """Draw a small textured blob (5x5 random-but-fixed pattern per point)."""
+    h, w = img.shape
+    x, y = int(round(uv[0])), int(round(uv[1]))
+    if x < 4 or y < 4 or x >= w - 4 or y >= h - 4:
+        return
+    img[y - 2:y + 3, x - 2:x + 3] = intensity
+
+
 def generate(
     num_frames: int = 40,
     num_points: int = 600,
@@ -259,6 +268,101 @@ def generate(
     return SyntheticSequence(images=images, poses=poses,
                              timestamps=timestamps, calib=calib,
                              points=points)
+
+
+def degrade(images, seed: int = 0, noise_std: float = 4.0,
+            exposure_amp: float = 0.25, blur: bool = True,
+            vignette: float = 0.25):
+    """EuRoC-like photometric degradation for synthetic sequences.
+
+    Real MAV footage differs from clean renders in ways that stress the
+    frontend: sensor noise, auto-exposure gain drift between frames, mild
+    motion blur, and lens vignetting. Applied per frame pair:
+    - gaussian sensor noise (std ``noise_std`` gray levels);
+    - per-frame exposure gain following a smooth random walk within
+      [1-exposure_amp, 1+exposure_amp] (left/right share the gain, like a
+      synchronized stereo rig);
+    - 3x3 box blur (one pass) when ``blur``;
+    - radial vignetting darkening corners by up to ``vignette``.
+
+    Returns a new list of (left, right) uint8 pairs.
+    """
+    rng = np.random.RandomState(seed + 77)
+    out = []
+    h, w = images[0][0].shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    r2 = (((xx - w / 2) / (w / 2)) ** 2 + ((yy - h / 2) / (h / 2)) ** 2)
+    vig = 1.0 - vignette * np.clip(r2, 0, 1)
+    gain = 1.0
+    for img_l, img_r in images:
+        gain = float(np.clip(gain + rng.normal(0, 0.05),
+                             1 - exposure_amp, 1 + exposure_amp))
+        pair = []
+        for img in (img_l, img_r):
+            f = img.astype(np.float64)
+            if blur:
+                p = np.pad(f, 1, mode="edge")
+                f = (p[:-2, :-2] + p[:-2, 1:-1] + p[:-2, 2:]
+                     + p[1:-1, :-2] + p[1:-1, 1:-1] + p[1:-1, 2:]
+                     + p[2:, :-2] + p[2:, 1:-1] + p[2:, 2:]) / 9.0
+            f = f * gain * vig + rng.normal(0, noise_std, f.shape)
+            pair.append(np.clip(f, 0, 255).astype(np.uint8))
+        out.append((pair[0], pair[1]))
+    return out
+
+
+def multiscale_texture(size: int = 1024, seed: int = 0) -> np.ndarray:
+    """Band-limited texture with structure at several spatial scales.
+
+    Sum of box-blurred noise octaves, so corners/blobs exist at every
+    scale — a camera retreating from the plane keeps seeing features, just
+    coarser ones. Used by the scale-invariance (pyramid) tests.
+    """
+    rng = np.random.RandomState(seed)
+    tex = np.zeros((size, size), np.float64)
+    for octave, amp in ((1, 0.8), (2, 1.0), (4, 1.2), (8, 1.5), (16, 1.8)):
+        n = rng.uniform(-1, 1, (size // octave + 1, size // octave + 1))
+        up = np.kron(n, np.ones((octave, octave)))[:size, :size]
+        # cheap smoothing: two 3x3 box passes
+        for _ in range(2):
+            p = np.pad(up, 1, mode="edge")
+            up = (p[:-2, :-2] + p[:-2, 1:-1] + p[:-2, 2:]
+                  + p[1:-1, :-2] + p[1:-1, 1:-1] + p[1:-1, 2:]
+                  + p[2:, :-2] + p[2:, 1:-1] + p[2:, 2:]) / 9.0
+        tex += amp * up
+    tex -= tex.min()
+    tex *= 255.0 / max(tex.max(), 1e-9)
+    return tex.astype(np.uint8)
+
+
+def render_plane_view(texture: np.ndarray, intr, z: float,
+                      width: int, height: int,
+                      meters_per_texel: float = 0.004,
+                      center_xy=(0.0, 0.0)) -> np.ndarray:
+    """Render a fronto-parallel textured plane from distance ``z`` (pinhole).
+
+    The plane is world z=const, the camera looks straight at it; changing
+    ``z`` produces a genuine perspective scale change (unlike the splat
+    renderer, whose patches are fixed-size). Bilinear sampling.
+    """
+    fx, fy, cx, cy = [float(v) for v in intr[:4]]
+    u = np.arange(width, dtype=np.float64)
+    v = np.arange(height, dtype=np.float64)
+    X = (u[None, :] - cx) * z / fx + center_xy[0]     # meters on the plane
+    Y = (v[:, None] - cy) * z / fy + center_xy[1]
+    ht, wt = texture.shape
+    tx = X / meters_per_texel + wt / 2.0
+    ty = Y / meters_per_texel + ht / 2.0
+    tx = np.clip(np.broadcast_to(tx, (height, width)), 0, wt - 1.001)
+    ty = np.clip(np.broadcast_to(ty, (height, width)), 0, ht - 1.001)
+    x0 = tx.astype(np.int64)
+    y0 = ty.astype(np.int64)
+    ax = tx - x0
+    ay = ty - y0
+    t = texture.astype(np.float64)
+    val = ((1 - ay) * ((1 - ax) * t[y0, x0] + ax * t[y0, x0 + 1])
+           + ay * ((1 - ax) * t[y0 + 1, x0] + ax * t[y0 + 1, x0 + 1]))
+    return np.clip(val, 0, 255).astype(np.uint8)
 
 
 def _compose_np(T1, T2):
@@ -694,3 +798,193 @@ def make_ring_graph(n=8, drift=0.05):
     edge_j = ((np.arange(n) + 1) % n).astype(np.int32)
     return (gt.numpy(), torch.stack(poses).numpy(), edge_i, edge_j,
             meas.numpy())
+
+
+def superpoint_training_batch(seq: SyntheticSequence, frames, m: int = 48):
+    """A supervised SuperPoint batch from the generator's exact corner and
+    correspondence ground truth, as numpy arrays (``img_*`` [F, H, W, 1]
+    in [0, 1], ``heat_*`` [F, H, W], ``uv_*`` [F, m, 2] float32, ``valid``
+    [F, m] bool): ``make_training_batch`` of
+    tests/test_learned_frontend.py, which the JAX package's learned-VO test
+    trains on. Per frame, the first ``m`` points seen by both cameras of
+    the stereo pair at depth > 0.5 and 8 px inside the image."""
+    h, w = seq.images[0][0].shape
+    out = {k: [] for k in ("img_a", "img_b", "heat_a", "heat_b", "uv_a",
+                           "uv_b", "valid")}
+    T01 = np.concatenate([seq.calib.T_i_c[1][:3], seq.calib.T_i_c[1][3:]])
+    for f in frames:
+        T_w_l = seq.poses[f]
+        T_w_r = _compose_np(T_w_l, T01)
+        pc_l = _se3_apply_np(_se3_inv_np(T_w_l)[None], seq.points)
+        pc_r = _se3_apply_np(_se3_inv_np(T_w_r)[None], seq.points)
+        uv_l = _project_np("pinhole", seq.calib.intrinsics[0], pc_l)
+        uv_r = _project_np("pinhole", seq.calib.intrinsics[1], pc_r)
+        vis = ((pc_l[:, 2] > 0.5) & (pc_r[:, 2] > 0.5)
+               & (uv_l[:, 0] > 8) & (uv_l[:, 0] < w - 8)
+               & (uv_l[:, 1] > 8) & (uv_l[:, 1] < h - 8)
+               & (uv_r[:, 0] > 8) & (uv_r[:, 0] < w - 8)
+               & (uv_r[:, 1] > 8) & (uv_r[:, 1] < h - 8))
+        ids = np.nonzero(vis)[0][:m]
+        pad = m - len(ids)
+        for side, uv, img in (("a", uv_l, seq.images[f][0]),
+                              ("b", uv_r, seq.images[f][1])):
+            heat = np.zeros((h, w))
+            px = uv[ids].round().astype(int)
+            heat[px[:, 1], px[:, 0]] = 1.0
+            out[f"img_{side}"].append(img[..., None] / 255.0)
+            out[f"heat_{side}"].append(heat)
+            out[f"uv_{side}"].append(np.pad(uv[ids], ((0, pad), (0, 0))))
+        out["valid"].append(np.arange(m) < len(ids))
+    return {k: np.stack(v).astype(bool if k == "valid" else np.float32)
+            for k, v in out.items()}
+
+
+# The learned-frontend VO of tests/test_learned_frontend.py::
+# test_learned_frontend_drives_vo_end_to_end: its supervision (the first
+# LEARNED_POINTS points of each training frame), its detection threshold
+# and its configuration deltas (``learned_config``).
+LEARNED_POINTS = 128
+LEARNED_SCORE_THRESHOLD = 0.002
+
+
+def learned_config(num_features: int = 256):
+    """``SlamConfig`` with the learned-VO test's deltas: cell-argmax
+    corners carry 2-4 px of localization noise, so the epipolar, PnP and
+    Huber gates widen; learned bits are denser in Hamming space, so the
+    match distance is 100 at a ratio of 1.1."""
+    from .config import SlamConfig
+
+    return SlamConfig(
+        num_features=num_features, ransac_hypotheses=128,
+        max_landmarks=8192, max_keyframes=64, max_inview_landmarks=512,
+        window_cams=24, window_points=2048, window_obs=6144, ba_max_iters=8,
+        enable_relocalization=False, enable_loop_closure=False,
+        new_kf_min_inliers=40, match_max_dist=100, match_next_best=1.1,
+        match_max_dist_2d=30.0, epipolar_error_threshold=8e-3,
+        pnp_inlier_thresh_px=12.0, ba_huber_px=3.0)
+
+
+def train_learned_frontend(seq: SyntheticSequence, frames, seed: int,
+                           steps: int = 300, lr: float = 2e-3,
+                           device="cuda"):
+    """The learned-VO test's model (``SuperPointTPU`` at dim 64, width 8,
+    initialized from a ``torch.Generator`` seeded ``seed``) trained
+    ``steps`` Adam steps at ``lr`` on ``superpoint_training_batch(seq,
+    frames, LEARNED_POINTS)``, on ``device`` (the card unless "cpu").
+    Returns (model, the loss before each step [steps])."""
+    import torch
+
+    from . import resolve_device
+    from .models import superpoint as sp
+
+    device = resolve_device(device)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             superpoint_training_batch(seq, frames, LEARNED_POINTS).items()}
+    model = sp.SuperPointTPU(dim=64, width=8, generator=torch.Generator()
+                             .manual_seed(seed)).to(device)
+    step = sp.make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                      lr=lr))
+    return model, torch.stack([step(batch) for _ in range(steps)])
+
+
+def make_calib_problem(num_frames=14, rows=4, cols=4, seed=1):
+    """The stereo calibration problem of
+    tests/test_calibrate.py::test_calibration_recovers_intrinsics: body
+    poses orbiting an AprilGrid (``tools.calibrate.aprilgrid_points``)
+    with viewpoint and distance diversity, two double-sphere cameras,
+    noise-free corner observations of every grid corner in every frame, and
+    perturbed initial guesses (frame 0 exact). The perturbations are numpy
+    draws from ``seed`` (the test's come from ``jax.random``). Returns
+    (problem, truth): two dicts of numpy arrays, the first with the fields
+    of ``tools.calibrate.CalibProblem``, the second with ``T_w_i``,
+    ``T_i_c`` and ``intr``."""
+    import torch
+
+    from .geometry import cameras, lie
+    from .tools.calibrate import aprilgrid_points
+
+    f32 = torch.float32
+    grid = torch.as_tensor(aprilgrid_points(rows=rows, cols=cols), dtype=f32)
+    G = grid.shape[0]
+    intr_gt = torch.tensor([
+        [350.0, 352.0, 376.0, 240.0, -0.2, 0.55, 0, 0],
+        [360.0, 358.0, 380.0, 250.0, -0.21, 0.57, 0, 0]])
+    T_i_c_gt = lie.se3_normalize(torch.tensor([
+        [0, 0, 0, 0, 0, 0, 1.0],
+        [0.11, 0.002, -0.001, 0.003, 0.001, -0.002, 1.0]]))
+    poses = []
+    center = np.array([0.3, 0.3, 0.0])
+    for f in range(num_frames):
+        s = f / max(num_frames - 1, 1)
+        ang = 1.6 * (s - 0.5)
+        elev = 0.9 * np.sin(3.1 * s)
+        dist = 0.45 + 0.5 * s
+        pos = center + dist * np.array(
+            [np.sin(ang) * np.cos(elev), np.sin(elev),
+             -np.cos(ang) * np.cos(elev)])
+        look = (center - pos) / np.linalg.norm(center - pos)
+        x = np.cross([0, 1, 0], look)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(look, x), look], axis=1)
+        poses.append(np.concatenate([pos, lie.matrix_to_quat(
+            torch.as_tensor(R, dtype=f32)).numpy()]))
+    T_w_i_gt = torch.as_tensor(np.stack(poses), dtype=f32)
+
+    frame, cam, corner, uv = [], [], [], []
+    for f in range(num_frames):
+        for c in range(2):
+            T_w_c = lie.se3_mul(T_w_i_gt[f], T_i_c_gt[c])
+            pc = lie.se3_apply(lie.se3_inv(T_w_c), grid)
+            uv.append(cameras.project("ds", intr_gt[c], pc).numpy())
+            frame += [f] * G
+            cam += [c] * G
+            corner += list(range(G))
+    rng = np.random.RandomState(seed)
+    T_w_i0 = lie.se3_retract(T_w_i_gt, torch.as_tensor(
+        0.02 * rng.normal(size=(num_frames, 6)), dtype=f32))
+    T_w_i0[0] = T_w_i_gt[0]              # gauge frame exact
+    T_i_c0 = lie.se3_retract(T_i_c_gt, torch.as_tensor(
+        0.01 * rng.normal(size=(2, 6)), dtype=f32))
+    intr0 = intr_gt + torch.tensor([[5.0, -4, 3, -3, 0.05, -0.04, 0, 0],
+                                    [-6, 5, -2, 4, 0.04, -0.05, 0, 0]])
+    prob = dict(
+        grid=grid.numpy(), obs_frame=np.asarray(frame, np.int32),
+        obs_cam=np.asarray(cam, np.int32),
+        obs_corner=np.asarray(corner, np.int32),
+        obs_uv=np.concatenate(uv).astype(np.float32),
+        obs_valid=np.ones(len(frame), bool), T_w_i0=T_w_i0.numpy(),
+        T_i_c0=T_i_c0.numpy(), intr0=intr0.numpy())
+    truth = dict(T_w_i=T_w_i_gt.numpy(), T_i_c=T_i_c_gt.numpy(),
+                 intr=intr_gt.numpy())
+    return prob, truth
+
+
+def planar_two_view(planar: bool = True, n: int = 120, seed: int = 0,
+                    noise: float = 0.0):
+    """Two views of one tilted plane (or of a general scene) as
+    tests/test_relative_pose_planar.py's ``_make_scene`` builds them: unit
+    bearings f1, f2 [n, 3] (float32 numpy) and the pose T_1_2 [7] of the
+    second camera in the first."""
+    import torch
+
+    from .geometry import lie
+
+    rng = np.random.RandomState(seed)
+    if planar:
+        uv = rng.uniform(-2.5, 2.5, (n, 2))
+        pts = np.stack([uv[:, 0], uv[:, 1],
+                        4.0 + 0.3 * uv[:, 0] + 0.15 * uv[:, 1]], -1)
+    else:
+        pts = np.stack([rng.uniform(-2.5, 2.5, n), rng.uniform(-2.5, 2.5, n),
+                        rng.uniform(3.0, 9.0, n)], -1)
+    T_1_2 = lie.se3_exp(torch.tensor([0.6, -0.15, 0.2, 0.03, -0.12, 0.05]))
+    f1 = pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    p2 = lie.se3_apply(lie.se3_inv(T_1_2), torch.as_tensor(
+        pts, dtype=torch.float32)).numpy()
+    f2 = p2 / np.linalg.norm(p2, axis=-1, keepdims=True)
+    if noise:
+        f1 = f1 + rng.normal(0, noise, f1.shape)
+        f2 = f2 + rng.normal(0, noise, f2.shape)
+        f1 /= np.linalg.norm(f1, axis=-1, keepdims=True)
+        f2 /= np.linalg.norm(f2, axis=-1, keepdims=True)
+    return f1.astype(np.float32), f2.astype(np.float32), T_1_2.numpy()

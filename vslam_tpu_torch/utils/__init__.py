@@ -1,1 +1,1 @@
-from . import checkpoint, metrics  # noqa: F401
+from . import checkpoint, metrics, tracks  # noqa: F401
