@@ -132,6 +132,25 @@ skipped.
    tests/test_calibrate.py's problem with its bars, and the E/H hybrid on
    tests/test_relative_pose_planar.py's plane (the homography selected,
    the pose within the test's bars).
+12. The EuRoC configuration: phase 4's world and configuration through
+   the double-sphere camera (``cam_type="ds"``; at 752x480 its fx = 220
+   puts the image corners 88.6 degrees off the axis, inside the model's
+   valid region), ``StreamingVO`` for 8 warm-up and 120 timed frames:
+   keyframe ATE at most max(2 x phase 4's, 0.05 m), at least 90% of the
+   frames after the bootstrap tracked (phase 4's share printed beside),
+   ms per frame (median, max), frames per second, peak memory, the landmark
+   top-2 once per frame and the descriptor top-2 twice per keyframe. Then
+   ``python -m vslam_tpu_torch.tools.ate_table --dataset-root`` on that
+   world written as a mav0 tree (PGM images, the ds calibration, a
+   vocabulary the port trained on its own features, the configuration as
+   JSON): the faithful driver's full-SLAM and VO arms; every table cell
+   must be finite, and each arm's frames per second and ms per frame are
+   printed. Every landmark / descriptor top-2 call of both runs is kept
+   and checked exact against its plain version; each kernel is timed at
+   the ds run's shape (``euroc_ds_shape`` in the kernels line). Last,
+   kb4 and eucm on tests/test_e2e_ds_model.py's world through
+   ``SlamSystem`` and ``StreamingVO`` with that test's bars (at least 3
+   keyframes, keyframe ATE under 0.12 m).
 
 ``python3 chip_smoke.py --faithful-seeds 0 1 2 3 4 5`` runs, instead of
 the phases, the faithful driver and its control on phase 7's world over
@@ -224,29 +243,51 @@ def call_ms(fn, iters=50, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(fn, only, iters=20):
-    """Device time per call of ``fn`` from one ``torch.profiler`` window:
+def device_ms(fn, only, iters=20, windows=3):
+    """Device time per call of ``fn`` from a ``torch.profiler`` window:
     (ms of every kernel and copy it launches, ms of the kernels whose name
     contains ``only``, device operations per call, device events seen).
 
     The profiler may drop an odd event of the window (19 of 20 launches
     of one kernel have been seen), so each device operation is counted
     per call as ceil(its events / calls), at least one for any operation
-    seen at all, and timed as its mean event time that many times."""
+    seen at all, and timed as its mean event time that many times. It
+    has also handed over a window with no device event at all (late in
+    a long run), so an empty window is taken again, up to ``windows``
+    times; after that the time per call is taken from CUDA events around
+    ``iters`` calls back to back (an upper bound: the host's launch gaps
+    count where they exceed the kernel; said so in the output), with the
+    device operations unknown (None)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [evt for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA
+                  and evt.count > 0]
+        if (sum(evt.self_device_time_total for evt in events) > 0
+                and any(only in evt.key for evt in events)):
+            break
+        print(f"the profiler saw no device time for {only or 'the call'} "
+              f"in a window of {iters} calls", flush=True)
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    events = [evt for evt in prof.key_averages()
-              if evt.device_type == torch.autograd.DeviceType.CUDA
-              and evt.count > 0]
-    check(events and sum(evt.self_device_time_total for evt in events) > 0,
-          f"the profiler saw no device time for {only}")
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        print(f"device time of {only or 'the call'} from CUDA events around "
+              f"{iters} calls: {ms:.4f} ms per call", flush=True)
+        return ms, ms, None, 0
     per_call = {evt.key: -(-evt.count // iters) for evt in events}
     us = {evt.key: evt.self_device_time_total / evt.count * per_call[evt.key]
           for evt in events}
@@ -1691,10 +1732,10 @@ def check_learned_launches(r, where):
           f"times for {r['keyframes']} keyframes")
 
 
-def learned_shape(calls, kernels):
-    """Each kernel timed at its last call of the full-width learned-VO
-    run, as ``slam_shape`` at the SLAM slice's: ``kernels[name]
-    ["learned_shape"]``."""
+def time_at_shape(calls, kernels, key, path):
+    """Each kernel timed at its last kept call of a run (``calls``, from
+    ``kernel_inputs``), as ``slam_shape`` at the SLAM slice's:
+    ``kernels[name][key]``; ``path`` names the run in the printout."""
     from vslam_tpu_torch.ops import cuda_hamming, hamming
 
     for name, plain, bound_of in (
@@ -1707,11 +1748,11 @@ def learned_shape(calls, kernels):
                  f"N={args[0].shape[0]} M={args[1].shape[0]}")
         t = timings(getattr(cuda_hamming, name), plain, args, name)
         b_ms, b_by = bound_of(*args)
-        kernels[name]["learned_shape"] = dict(
+        kernels[name][key] = dict(
             shape=shape, ms=t["ms"], plain_ms=t["plain_ms"],
             call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
             bound_ms=b_ms, bound_by=b_by)
-        print(f"kernel {name} at the learned path's {shape}: device "
+        print(f"kernel {name} at the {path} {shape}: device "
               f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}); per call with "
               f"host {t['call_ms']:.4f} ms (plain {t['plain_call_ms']:.4f}); "
               f"bound {b_ms * 1e3:.3f} us by {b_by}", flush=True)
@@ -1790,7 +1831,7 @@ def phase_learned(dev, smi, kernels):
                  init_seed=LEARNED_SEED, card=smi,
                  kernel_inputs=check_kernel_inputs(calls,
                                                    "learned full width"))
-        learned_shape(calls, kernels)
+        time_at_shape(calls, kernels, "learned_shape", "learned path's")
         del calls
         out["full"] = r
         print("learned VO, full width: " + json.dumps(r), flush=True)
@@ -1861,6 +1902,198 @@ def phase_learned(dev, smi, kernels):
     check(r["ok"] and r["used_homography"] and rot_err < 0.02
           and dir_err < 0.06, "relative pose: the planar hybrid")
     return out["full"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the EuRoC configuration: double-sphere, KB4 and EUCM cameras
+# ---------------------------------------------------------------------------
+
+# Phase 12's floor on the share of timed frames tracked after the bootstrap
+# in the double-sphere run (phase 4's pinhole run tracks all of them; the
+# share of both is printed).
+EUROC_TRACKED_FLOOR = 0.9
+
+
+def ds_model_config(SlamConfig):
+    """tests/test_e2e_ds_model.py's configuration."""
+    return SlamConfig(
+        num_features=400, ransac_hypotheses=128, max_landmarks=8192,
+        max_keyframes=64, max_inview_landmarks=512, window_cams=24,
+        window_points=2048, window_obs=6144, ba_max_iters=8,
+        enable_relocalization=False, enable_loop_closure=False,
+        new_kf_min_inliers=60)
+
+
+def table_cells(table, name):
+    """The numbers of ``name``'s row of an ATE table (SLAM ATE, VO ATE,
+    loops, ground-truth path, SLAM drift)."""
+    row = [ln for ln in table.splitlines() if ln.startswith(f"| {name} |")]
+    check(len(row) == 1, f"EuRoC table: no row for {name}")
+    return [float(c) for c in row[0].split("|")[2:-1]]
+
+
+def phase_euroc(dev, smi, kernels, pinhole):
+    """The EuRoC configuration on the card (see the module docstring,
+    phase 12): ``pinhole`` is phase 4's summary. Adds each kernel's
+    ``euroc_ds_shape`` to ``kernels``. Returns the launches of the
+    double-sphere ``StreamingVO`` run and of the ATE tool's run."""
+    import tempfile
+
+    from vslam_tpu_torch import synthetic
+    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch.eval import ate
+    from vslam_tpu_torch.io import calib as calib_mod
+    from vslam_tpu_torch.loop import vocabulary as vocab_mod
+    from vslam_tpu_torch.pipeline.slam import SlamSystem
+    from vslam_tpu_torch.pipeline.streaming import StreamingVO
+    from vslam_tpu_torch.tools import ate_table
+
+    # ---- StreamingVO at the benchmark's configuration through ds ----
+    t0 = time.perf_counter()
+    seq = synthetic.generate(num_frames=128, num_points=1200, width=752,
+                             height=480, seed=2, speed=3.0, cam_type="ds")
+    frames = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
+              for l, r in seq.images]
+    t_world = time.perf_counter() - t0
+    vo = StreamingVO(seq.calib, bench_config(SlamConfig),
+                     max_frames=len(frames), device=dev)
+    check(vo.cam_name == "ds", f"EuRoC ds: camera {vo.cam_name}")
+    vo.run(frames[:WARMUP_FRAMES])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = []
+    with kernel_inputs() as vo_calls:
+        for img_l, img_r in frames[WARMUP_FRAMES:]:
+            t = time.perf_counter()
+            vo.process_frame(img_l, img_r)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+    launches = read_launches()
+    res = vo.results()
+    n_timed = len(frames) - WARMUP_FRAMES
+    kfs_timed = int(res["is_keyframe"][WARMUP_FRAMES:].sum())
+    tracked_share = float(res["tracked_ok"][1:].mean())
+    pinhole_share = pinhole["tracked_after_bootstrap"] / (
+        pinhole["frames"] - 1)
+    fids, pos, _ = vo.keyframe_trajectory()
+    kf_ate = float(ate.align_svd(pos, seq.poses[fids, :3])[2])
+    bar = max(2.0 * pinhole["kf_ate_m"], 0.05)
+    r = dict(
+        frames=int(res["frames"]), timed_frames=n_timed,
+        keyframes=int(res["is_keyframe"].sum()), keyframes_timed=kfs_timed,
+        tracked_share_after_bootstrap=tracked_share,
+        pinhole_tracked_share_after_bootstrap=pinhole_share,
+        kf_ate_m=kf_ate, kf_ate_bar_m=bar,
+        pinhole_kf_ate_m=pinhole["kf_ate_m"],
+        median_ms_per_frame=statistics.median(ms), max_ms_per_frame=max(ms),
+        fps=1e3 * n_timed / sum(ms),
+        pinhole_median_ms_per_frame=pinhole["median_ms_per_frame"],
+        max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+        launches=launches, world_seconds=t_world, card=smi)
+    print("EuRoC ds, StreamingVO: " + json.dumps(r), flush=True)
+    traj = res["trajectory"]
+    check(traj.shape == (len(frames), 7) and np.isfinite(traj).all(),
+          "EuRoC ds: trajectory is not finite")
+    check(tracked_share >= EUROC_TRACKED_FLOOR,
+          f"EuRoC ds: tracked {tracked_share:.3f} of the frames after the "
+          f"bootstrap (pinhole {pinhole_share:.3f})")
+    check(kf_ate <= bar, f"EuRoC ds: keyframe ATE {kf_ate:.4f} m > "
+                         f"{bar:.4f} m")
+    check(launches["landmark_top2"] == n_timed,
+          f"EuRoC ds: landmark_top2 launched {launches['landmark_top2']} "
+          f"times in {n_timed} frames")
+    check(kfs_timed > 0 and launches["hamming_top2"] == 2 * kfs_timed,
+          f"EuRoC ds: hamming_top2 launched {launches['hamming_top2']} times "
+          f"for {kfs_timed} keyframes")
+    time_at_shape(vo_calls, kernels, "euroc_ds_shape",
+                  "EuRoC ds run's")
+    del vo, frames
+
+    # ---- the ATE tool's --dataset-root mode on that world, from files ----
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        synthetic.write_mav0(seq, os.path.join(tmp, "EUROC_DS", "mav0"))
+        calib_path = os.path.join(tmp, "calib.json")
+        calib_mod.save_calibration(seq.calib, calib_path)
+        cfg = bench_config(SlamConfig)
+        voc = train_vocabulary(seq.images, range(0, len(seq.images), 8),
+                               cfg.num_features, dev)
+        voc_path = os.path.join(tmp, "voc.txt")
+        vocab_mod.save_dbow2_text(voc, voc_path)
+        cfg_path = os.path.join(tmp, "config.json")
+        cfg.to_json(cfg_path)
+        out_path = os.path.join(tmp, "EUROC_TABLE.md")
+        t_files = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = []
+        with kernel_inputs() as tool_calls:
+            rc = ate_table.main(["--dataset-root", tmp, "--cam-calib",
+                                 calib_path, "--voc-path", voc_path,
+                                 "--config", cfg_path, "--out", out_path],
+                                rows)
+        torch.cuda.synchronize()
+        t_tool = time.perf_counter() - t0
+        tool_launches = read_launches()
+        check(rc == 0, f"EuRoC ATE table: return code {rc}")
+        with open(out_path) as f:
+            table = f.read()
+    (row,) = rows
+    cells = table_cells(table, "EUROC_DS")
+    check(all(np.isfinite(c) for c in cells),
+          f"EuRoC ATE table: a cell is not finite: {cells}")
+    arms = {}
+    for arm in ("slam", "vo"):
+        a = row[arm]
+        arms[arm] = dict(
+            kf_ate_m=a["ate_m"], keyframes=a["keyframes"], loops=a["loops"],
+            frames=a["frames"], tracked=a["tracked"], fps=a["fps"],
+            median_ms_per_frame=statistics.median(a["frame_ms"]),
+            max_ms_per_frame=max(a["frame_ms"]))
+    r = dict(arms=arms, table_cells=cells, seconds=t_tool,
+             files_and_vocabulary_seconds=t_files,
+             vocabulary_words=voc.num_words,
+             max_memory_allocated_bytes=int(torch.cuda.max_memory_allocated()),
+             launches=tool_launches, card=smi)
+    print("EuRoC ds, ATE tool: " + json.dumps(r), flush=True)
+    n_frames = sum(a["frames"] for a in arms.values())
+    n_kf = sum(a["keyframes"] for a in arms.values())
+    check(tool_launches["landmark_top2"] >= n_frames,
+          f"EuRoC ATE table: landmark_top2 launched "
+          f"{tool_launches['landmark_top2']} times in {n_frames} frames")
+    check(tool_launches["hamming_top2"] >= 2 * n_kf,
+          f"EuRoC ATE table: hamming_top2 launched "
+          f"{tool_launches['hamming_top2']} times for {n_kf} keyframes")
+    r = check_kernel_inputs(
+        {k: vo_calls[k] + tool_calls[k] for k in vo_calls}, "EuRoC ds")
+    print("EuRoC ds, kernel inputs: " + json.dumps(r), flush=True)
+    del vo_calls, tool_calls
+
+    # ---- kb4 and eucm on the JAX test's world, both drivers ----
+    for cam in ("kb4", "eucm"):
+        small = synthetic.generate(num_frames=14, num_points=500, seed=7,
+                                   cam_type=cam)
+        for name in ("SlamSystem", "StreamingVO"):
+            if name == "SlamSystem":
+                drv = SlamSystem(small.calib, ds_model_config(SlamConfig),
+                                 device=dev)
+                for img_l, img_r in small.images:
+                    drv.process_frame(img_l, img_r)
+            else:
+                drv = StreamingVO(small.calib, ds_model_config(SlamConfig),
+                                  max_frames=32, device=dev)
+                drv.run(small.images)
+            fids, pos, _ = drv.keyframe_trajectory()
+            rmse = (float(ate.align_svd(pos, small.poses[fids, :3])[2])
+                    if len(fids) >= 3 else float("nan"))
+            print(f"EuRoC models, {cam} {name}: keyframes {len(fids)}, "
+                  f"keyframe ATE {rmse:.4f} m", flush=True)
+            check(drv.cam_name == cam and len(fids) >= 3 and rmse < 0.12,
+                  f"{cam} {name}: {len(fids)} keyframes, ATE {rmse}")
+    return launches, tool_launches
 
 
 def sweep_learned_seeds(dev, seeds, smi):
@@ -2009,6 +2242,9 @@ def main():
     lap("10 (multi-sequence)")
     learned_launches = phase_learned(dev, smi, kernels)
     lap("11 (learned frontend, reporting, calibration, relative pose)")
+    euroc_launches, euroc_tool_launches = phase_euroc(dev, smi, kernels,
+                                                      vo_summary)
+    lap("12 (EuRoC: double-sphere, ATE tool, kb4 and eucm)")
     check("jax" not in sys.modules
           and not any(m.split(".")[0] == "vslam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
@@ -2025,6 +2261,8 @@ def main():
              launches_cli_streaming=cli_runs["streaming"]["launches"][name],
              launches_multiseq=multiseq_launches[name],
              launches_learned_vo=learned_launches[name],
+             launches_euroc_ds=euroc_launches[name],
+             launches_euroc_ds_tool=euroc_tool_launches[name],
              **kernels[name])
         for name in ("landmark_top2", "hamming_top2")]}))
     print(smi)

@@ -1,0 +1,397 @@
+"""ATE table emitter: a hermetic synthetic table and the one-command
+EuRoC mode (port of the repository's ``tools/ate_table.py``).
+
+Hermetic mode (the default): synthetic worlds with exact ground truth,
+evaluated by the SE3-Umeyama keyframe ATE the reference uses
+(src/slam.cpp:1618-1710 -> ``eval/ate.py``). Like the reference's table,
+rows compare the full configuration against baseline VO; several RANSAC
+seeds average out the draws.
+
+    python -m vslam_tpu_torch.tools.ate_table [--seeds 3] [--out ATE_TABLE.md]
+
+Dataset mode (``--dataset-root``): the reference's README table
+(README.md:36-48) from a directory of EuRoC sequences. Each sequence runs
+the faithful driver (``SlamSystem``) twice, full SLAM (loop closure +
+global BA after a loop + relocalization, slam.cpp:244-247) and baseline
+VO; the ATE is the timestamp-associated SE3-Umeyama alignment
+(slam.cpp:1618-1710):
+
+    python -m vslam_tpu_torch.tools.ate_table --dataset-root /data/euroc \\
+        --cam-calib euroc_ds_calib.json [--voc-path voc.txt] \\
+        [--config cfg.json] [--max-frames N] [--out EUROC_TABLE.md]
+
+``--dataset-root`` holds one subdirectory per sequence (``MH_01_easy/``
+...), each containing ``mav0/`` (or being a mav0 tree itself). Without
+``--voc-path`` the full-SLAM arm trains its vocabulary online from the
+sequence's own features. A sequence that fails prints ``FAILED`` and
+gives NaN in its row; the table is still written.
+
+Everything runs on the card unless ``--device cpu`` is given (an error
+where there is no card). The JAX package's TPU round-trip arguments
+(chunked dispatch, ``sync_every``) have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+from ..cli import _sync
+
+
+def run_vo(seq, seed, device="cuda"):
+    """``StreamingVO`` over ``seq`` at the arc rows' configuration;
+    keyframe ATE, or NaN under 3 keyframes."""
+    from ..config import SlamConfig
+    from ..eval import ate
+    from ..pipeline.streaming import StreamingVO
+
+    cfg = SlamConfig(
+        num_features=400, ransac_hypotheses=128, max_landmarks=8192,
+        max_keyframes=64, max_inview_landmarks=512, window_cams=24,
+        window_points=2048, window_obs=6144, ba_max_iters=10,
+        enable_relocalization=False, enable_loop_closure=False,
+        new_kf_min_inliers=60, seed=seed)
+    vo = StreamingVO(seq.calib, cfg, max_frames=len(seq.images) + 8,
+                     device=device)
+    vo.run(seq.images)
+    fids, pos, _ = vo.keyframe_trajectory()
+    if len(fids) < 3:
+        return float("nan")
+    return float(ate.align_svd(pos, seq.poses[fids, :3])[2])
+
+
+_pano_cache = {}
+
+
+def run_pano(full_slam: bool, seed: int, num_features: int = 600,
+             matched_hygiene: bool = False, device="cuda"):
+    """Pano-world run: ``full_slam`` = the reference's full default
+    configuration (loop closure + GBA after loop + relocalization,
+    slam.cpp:244-247); otherwise baseline VO.
+
+    ``num_features=600`` tracks the world tightly (consistent map: the
+    SLAM row must not degrade it); ``num_features=300`` starves the
+    geometry so drift accrues organically and closures must cut it.
+
+    ``matched_hygiene`` (VO only) applies the full-SLAM configuration's
+    lost-frame keyframe gate (cfg.kf_require_tracked) to the VO control,
+    so the SLAM-vs-VO delta isolates the loop machinery; the plain VO row
+    keeps the reference's semantics (a lost frame keyframes immediately
+    at the coasted pose, slam.cpp:1374-1377). Returns (ATE, loops)."""
+    import torch
+
+    from .. import resolve_device
+    from ..config import SlamConfig
+    from ..eval import ate
+    from ..frontend.features import extract_features
+    from ..loop import vocabulary as vocab_mod
+    from ..pipeline.streaming import StreamingSLAM, StreamingVO
+    from ..synthetic_pano import generate_pano_loop
+
+    dev = resolve_device(device)
+    if "seq" not in _pano_cache:
+        _pano_cache["seq"] = generate_pano_loop(
+            num_frames=256, revolutions=1.75, seed=2)
+    seq = _pano_cache["seq"]
+    cfg = SlamConfig(
+        num_features=num_features, ransac_hypotheses=128,
+        max_landmarks=32768,
+        max_keyframes=128, max_inview_landmarks=512, window_cams=24,
+        window_points=2048, window_obs=6144, ba_max_iters=10,
+        enable_relocalization=full_slam, enable_loop_closure=full_slam,
+        enable_gba_after_loop=full_slam, new_kf_min_inliers=60,
+        kf_require_tracked=matched_hygiene,
+        loop_closing_time_threshold=20, quality_level=0.001,
+        match_max_dist_2d=30.0, seed=seed)
+    if full_slam:
+        key = (num_features, dev.type)
+        if key not in _pano_cache:
+            pool = []
+            for f in range(0, 256, 8):
+                ft = extract_features(
+                    torch.as_tensor(seq.images[f][0]).to(dev),
+                    num_features=num_features, quality_level=0.001)
+                pool.append(ft.bits[ft.valid].cpu().numpy())
+            voc = vocab_mod.train(np.concatenate(pool), k=10, depth=4,
+                                  seed=0)
+            vocab_mod.set_idf_weights(voc, pool)
+            _pano_cache[key] = voc
+        slam = StreamingSLAM(seq.calib, cfg, _pano_cache[key],
+                             max_frames=288, poll_every=16, device=dev)
+    else:
+        slam = StreamingVO(seq.calib, cfg, max_frames=288, device=dev)
+    slam.run(seq.images)
+    fids, pos, _ = slam.keyframe_trajectory()   # merges a pending GBA
+    rmse = ate.align_svd(pos, seq.poses[fids, :3])[2]
+    n_loops = len(slam.loop_edges) if full_slam else 0
+    return float(rmse), n_loops
+
+
+def discover_sequences(root: str):
+    """[(name, dataset_path)] for every EuRoC sequence under ``root``.
+
+    Accepts ``<root>/<seq>/mav0/cam0/data.csv`` (standard download
+    layout), ``<root>/<seq>/cam0/data.csv``, and ``root`` itself being a
+    single sequence.
+    """
+    out = []
+    if os.path.exists(os.path.join(root, "cam0", "data.csv")):
+        return [(os.path.basename(os.path.normpath(root)), root)]
+    if os.path.exists(os.path.join(root, "mav0", "cam0", "data.csv")):
+        return [(os.path.basename(os.path.normpath(root)),
+                 os.path.join(root, "mav0"))]
+    for name in sorted(os.listdir(root)):
+        seq_dir = os.path.join(root, name)
+        if not os.path.isdir(seq_dir):
+            continue
+        for sub in ("mav0", "."):
+            p = os.path.normpath(os.path.join(seq_dir, sub))
+            if os.path.exists(os.path.join(p, "cam0", "data.csv")):
+                out.append((name, p))
+                break
+    return out
+
+
+def run_real_sequence(dataset_path: str, calib, cfg, voc=None,
+                      max_frames: int = 0, device="cuda"):
+    """One run of the faithful driver on a mav0 tree.
+
+    Returns a dict: ``ate_m`` (timestamp-associated alignment, 110 ms gap
+    skip + SE3 Umeyama, slam.cpp:1618-1710; NaN without a ground-truth
+    CSV or under 3 keyframes), ``keyframes``, ``loops``, ``fps`` (decode
+    included), ``gt_len_m``, ``frames``, ``tracked`` and ``frame_ms``
+    (each frame's milliseconds, the card synchronized after it)."""
+    from ..eval import ate as ate_mod
+    from ..io import euroc
+    from ..pipeline.slam import SlamSystem
+
+    seq = euroc.load_sequence(dataset_path)
+    n = seq.num_frames if max_frames <= 0 else min(seq.num_frames,
+                                                   max_frames)
+    slam = SlamSystem(calib, cfg, device=device)
+    if voc is not None:
+        slam.set_vocabulary(voc)
+    pf = euroc.Prefetcher(seq.image_paths[:n], depth=8, workers=2)
+    frame_ms, tracked = [], 0
+    t0 = time.perf_counter()
+    for i in range(n):
+        t = time.perf_counter()
+        img_l, img_r = pf.get(i)
+        tracked += bool(slam.process_frame(img_l, img_r)["ok"])
+        _sync(slam.device)
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    fps = n / (time.perf_counter() - t0)
+    fids, est_pos, _ = slam.keyframe_trajectory()
+    ate_val, gt_len = float("nan"), float("nan")
+    if seq.gt_positions is not None and len(fids) >= 3:
+        ate_val = ate_mod.ate_rmse(seq.timestamps[fids], est_pos,
+                                   seq.gt_timestamps, seq.gt_positions)
+        gt_len = float(np.linalg.norm(
+            np.diff(np.asarray(seq.gt_positions), axis=0), axis=1).sum())
+    return dict(ate_m=float(ate_val), keyframes=len(fids),
+                loops=len(slam.loop_edges), fps=fps, gt_len_m=gt_len,
+                frames=n, tracked=tracked, frame_ms=frame_ms)
+
+
+def main_dataset(args, rows=None):
+    """--dataset-root mode: per-sequence full-SLAM vs VO table (the
+    reference's README.md:36-48 table, one command). ``args`` carries
+    dataset_root, cam_calib, voc_path, config, max_frames, out, device.
+    Each sequence's results are appended to ``rows`` when a list is given:
+    a dict {"seq", "slam", "vo"}, each arm ``run_real_sequence``'s dict."""
+    from ..config import SlamConfig
+    from ..io import calib as calib_mod
+
+    calib = calib_mod.load_calibration(args.cam_calib)
+    voc = None
+    if args.voc_path:
+        from ..loop import vocabulary as vocab_mod
+
+        voc = vocab_mod.load_dbow2_text(args.voc_path)
+        print(f"vocabulary: {voc.num_words} words", flush=True)
+    seqs = discover_sequences(args.dataset_root)
+    if not seqs:
+        print(f"no EuRoC sequences found under {args.dataset_root}")
+        return 1
+
+    base = SlamConfig.from_json(args.config) if args.config else SlamConfig()
+    rows = [] if rows is None else rows
+    for name, path in seqs:
+        row = {"seq": name}
+        for full in (True, False):
+            cfg = dataclasses.replace(
+                base, enable_loop_closure=full, enable_gba_after_loop=full,
+                enable_relocalization=full)
+            label = "slam" if full else "vo"
+            try:
+                r = run_real_sequence(path, calib, cfg, voc=voc,
+                                      max_frames=args.max_frames,
+                                      device=args.device)
+            except Exception as e:  # one bad sequence must not kill the table
+                print(f"  {name} [{label}] FAILED: {e}", flush=True)
+                r = dict(ate_m=float("nan"), keyframes=0, loops=0, fps=0.0,
+                         gt_len_m=float("nan"))
+            row[label] = r
+            print(f"  {name} [{label}]: ATE {r['ate_m']:.3f} m, "
+                  f"{r['keyframes']} KFs, {r['loops']} loops, "
+                  f"{r['fps']:.1f} fps", flush=True)
+        rows.append(row)
+
+    lines = [
+        "# EuRoC ATE table (real dataset)",
+        "",
+        "Per-sequence keyframe ATE RMSE, timestamp-associated SE3-Umeyama",
+        "alignment (the reference's own evaluation, slam.cpp:1618-1710).",
+        "Full SLAM = loop closure + GBA after loop + relocalization",
+        "(slam.cpp:244-247); reference numbers from README.md:40-48.",
+        "",
+        "| Sequence | Full SLAM (m) | Baseline VO (m) | loops closed "
+        "| GT path (m) | SLAM drift % |",
+        "|---|---|---|---|---|---|",
+    ]
+    for row in rows[-len(seqs):]:
+        slam, vo = row["slam"], row["vo"]
+        gt_len = vo["gt_len_m"] if np.isnan(slam["gt_len_m"]) else \
+            slam["gt_len_m"]
+        lines.append(f"| {row['seq']} | {slam['ate_m']:.3f} "
+                     f"| {vo['ate_m']:.3f} | {slam['loops']} "
+                     f"| {gt_len:.1f} "
+                     f"| {100.0 * slam['ate_m'] / gt_len:.1f} |")
+    lines += ["", "Generated by python -m vslam_tpu_torch.tools.ate_table "
+              f"--dataset-root {args.dataset_root}"]
+    with open(args.out, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print("\n".join(lines), flush=True)
+    return 0
+
+
+def traj_len(poses):
+    """Ground-truth path length (m): the denominator that makes an ATE
+    number interpretable."""
+    return float(np.linalg.norm(
+        np.diff(np.asarray(poses)[:, :3], axis=0), axis=1).sum())
+
+
+def main_hermetic(args):
+    from .. import synthetic
+
+    rows = []
+    t_start = time.time()
+    for world in ("arc (clean)", "arc (EuRoC-like photometrics)"):
+        vals = []
+        for s in range(args.seeds):
+            seq = synthetic.generate(num_frames=24, num_points=500, seed=3)
+            arc_len = traj_len(seq.poses)
+            if world.startswith("arc (EuRoC"):
+                seq.images[:] = synthetic.degrade(seq.images, seed=3 + s)
+            vals.append(run_vo(seq, seed=s, device=args.device))
+            print(f"  {world} seed {s}: {vals[-1]:.3f} m", flush=True)
+        rows.append((world, "VO (streaming)", vals, arc_len))
+
+    for nf, world in ((600, "pano orbit 1.75 rev (consistent tracking)"),
+                      (300, "pano orbit 1.75 rev (organic drift, 300 "
+                            "feats)")):
+        arms = [(False, False), (True, False)]
+        if nf == 300:
+            # matched-hygiene VO control (same lost-frame keyframe gate
+            # as the full configuration): isolates LC/reloc/GBA
+            arms.append((False, True))
+        for full, hygiene in arms:
+            vals, loops = [], 0
+            for s in range(args.seeds):
+                r, nl = run_pano(full, seed=s, num_features=nf,
+                                 matched_hygiene=hygiene,
+                                 device=args.device)
+                vals.append(r)
+                loops += nl
+                arm = ("SLAM" if full else
+                       "VO" + ("/gated" if hygiene else ""))
+                print(f"  pano nf={nf} {arm} seed {s}: {r:.3f} m "
+                      f"loops={nl}", flush=True)
+            cfg_name = ("full SLAM (LC+GBA+reloc, "
+                        f"{loops} closures/{args.seeds} seeds)"
+                        if full else
+                        ("VO control, matched KF hygiene" if hygiene
+                         else "baseline VO"))
+            rows.append((world, cfg_name, vals,
+                         traj_len(_pano_cache["seq"].poses)))
+
+    lines = [
+        "# Hermetic ATE table (synthetic ground truth)",
+        "",
+        "A stand-in for the reference's EuRoC ATE table (README.md:36-48)",
+        "where the dataset is not at hand. Metric = SE3-Umeyama keyframe",
+        "ATE RMSE, the reference's own evaluation (slam.cpp:1618-1710).",
+        f"{args.seeds} seeds per row; streaming drivers of the PyTorch port.",
+        "",
+        "| World | Config | ATE RMSE (m), per seed | mean | GT path (m) "
+        "| drift % |",
+        "|---|---|---|---|---|---|",
+    ]
+    for world, config, vals, length in rows:
+        vs = ", ".join(f"{v:.3f}" for v in vals)
+        lines.append(f"| {world} | {config} | {vs} | "
+                     f"{np.nanmean(vals):.3f} | {length:.1f} | "
+                     f"{100.0 * np.nanmean(vals) / length:.1f} |")
+    lines += [
+        "",
+        "Like the reference's table, the pano rows compare the full",
+        "default configuration (loop closure + GBA after loop +",
+        "relocalization, slam.cpp:244-247) against baseline VO on a long",
+        "revisit loop: on the consistent world (600 features) the SLAM row",
+        "must not degrade the map; on the organic-drift world (300",
+        "features) the gauges separate and closures must cut the",
+        "accumulated error. Seeds where no closure fires keep the VO",
+        "number (detection is consistency-gated, num_consistency=3).",
+        "",
+        "Generated by python -m vslam_tpu_torch.tools.ate_table "
+        f"in {time.time() - t_start:.0f}s.",
+    ]
+    with open(args.out, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"wrote {args.out}", flush=True)
+    print("\n".join(lines), flush=True)
+    return 0
+
+
+def main(argv=None, rows=None):
+    """The command line; ``rows`` as in ``main_dataset``."""
+    ap = argparse.ArgumentParser(
+        prog="python -m vslam_tpu_torch.tools.ate_table",
+        description=__doc__.split("\n")[0])
+    ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--out", default="ATE_TABLE.md")
+    ap.add_argument("--dataset-root", default="", help="EuRoC mode: "
+                    "directory of sequences (each with a mav0/ tree); "
+                    "emits the README-style per-sequence table")
+    ap.add_argument("--cam-calib", default="", help="calibration JSON "
+                    "(required with --dataset-root)")
+    ap.add_argument("--voc-path", default="", help="optional DBoW2 text "
+                    "vocabulary (else trained online per sequence)")
+    ap.add_argument("--config", default="", help="SlamConfig JSON overrides")
+    ap.add_argument("--max-frames", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="torch device to run "
+                    "on: the card by default (an error without one), 'cpu' "
+                    "on request")
+    args = ap.parse_args(argv)
+
+    from .. import resolve_device
+
+    args.device = resolve_device(args.device)
+    if args.dataset_root:
+        if not args.cam_calib:
+            ap.error("--dataset-root requires --cam-calib")
+        if args.out == "ATE_TABLE.md":
+            args.out = "EUROC_TABLE.md"
+        return main_dataset(args, rows)
+    return main_hermetic(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
