@@ -47,9 +47,10 @@ skipped.
    frames tracked, a GBA merge, and both kernels launched from the closure
    path. The share of the break's energy removed over the clean-VO floor
    (the test's 20% bar) is printed, not gated: see the phase's docstring.
-7. Full SLAM: ``bench.full_slam_world`` rebuilt in the port (752x480 pano
+7. Full SLAM: ``bench.full_slam_world``'s port,
+   ``vslam_tpu_torch.tools.bench_worlds.full_slam_world`` (752x480 pano
    revisit world, 288 frames, 300 features, a vocabulary trained with the
-   port's ``train`` on its own features, ``poll_every=32``); the
+   port's ``train`` on its own features), ``poll_every=32``; the
    full-SLAM arm and the VO control, 32 untimed frames and 256 timed each.
    Prints frames per second, loops, GBA merges, relocalizations, dropped
    window observations, the loop counters and timings, keyframe ATE of
@@ -92,14 +93,15 @@ skipped.
    that test's bars: cost below a tenth, fx and cx of both blocks back
    within 1.5 px.
 10. The multi-sequence path at the width of ``bench.bench_multiseq``: 8
-   worlds of 116 frames at 752x480 through ``MultiSeqVO`` in lockstep (8
-   warm-up, 108 timed frames, host clock around ``run`` + synchronize),
+   worlds of 64 frames at 752x480 through ``MultiSeqVO`` in lockstep (8
+   warm-up, 56 timed frames, host clock around ``run`` + synchronize;
+   the bench's 116 frames cut to fit the script's time),
    and the single-sequence ``StreamingVO`` on the first world at the same
    configuration. Prints sequence-frames per second beside the
    single-sequence frames per second of that world and of phase 4, ms per
    lockstep frame (median, max, by kind of frame), per sequence the
    trajectory ATE, frames tracked, keyframes and window BAs, peak memory,
-   the kernels' launches and, from a ``torch.profiler`` window over 16
+   the kernels' launches and, from a ``torch.profiler`` window over 4
    lockstep frames, device operations and device-to-host copies per
    lockstep frame and the device's idle share. Checks: finite poses; the
    landmark top-2 launched once per lockstep frame and the descriptor
@@ -151,6 +153,22 @@ skipped.
    kb4 and eucm on tests/test_e2e_ds_model.py's world through
    ``SlamSystem`` and ``StreamingVO`` with that test's bars (at least 3
    keyframes, keyframe ATE under 0.12 m).
+13. The measurement tools (``vslam_tpu_torch.tools``) in-process:
+   ``profile_stages --frames 20 --reps 5`` (the faithful driver's stages,
+   wall and device ms and device operations per call), ``profile_kf_branch``
+   at its defaults, ``bench_gba_scale --pairs 512,1024`` (phase 9 solves
+   the 4096-pair problem), ``bench_vocab`` at depth 6 (1.1M nodes) and
+   ``ablation_reloc --variants full`` on phase 7's world (loop closure,
+   global BA and relocalization at ``poll_every=16``), in deterministic
+   mode. Each record
+   is printed. Checks: every time finite and positive and no stage's
+   device ms above its wall ms, the keyframe branch's cost positive, each
+   global BA's final cost under half its initial (the JAX slow test's
+   bar), the card's descent words equal to the CPU's for the same 1500
+   descriptors, every ablation ATE finite, both kernels launched by the
+   profiled run and by the ablation, and every K1 / K2 call of those runs
+   (kept while they ran, so the profiled run's figures include the
+   copies) exact against its plain version.
 
 ``python3 chip_smoke.py --faithful-seeds 0 1 2 3 4 5`` runs, instead of
 the phases, the faithful driver and its control on phase 7's world over
@@ -159,10 +177,11 @@ phase 8's bar. ``--learned-seeds 0 1 2 ...`` runs phase 11's two
 learned-VO runs over initialization seeds (``sweep_learned_seeds``): the
 measurement behind its pinned seed.
 
-Phases 6 to 8 (and phase 11's training and learned VO) run with
-PyTorch's deterministic algorithms (see ``deterministic``): each SLAM arm
-and its VO control compute the same frames until the first poll that
-acts, and a run repeats bit for bit on one software stack.
+Phases 6 to 8 (and phase 11's training and learned VO, phase 13's
+ablation) run with PyTorch's deterministic algorithms (see
+``deterministic``): each SLAM arm and its VO control compute the same
+frames until the first poll that acts, and a run repeats bit for bit on
+one software stack.
 
 The last lines are one JSON object describing the kernels, the card's
 ``nvidia-smi`` name and power limit, and the result line
@@ -173,6 +192,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -185,6 +205,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from vslam_tpu_torch.utils.profiling import device_ms  # noqa: E402
 
 # Keyframe ATE of the JAX package's StreamingVO on the benchmark world
 # (synthetic.generate(num_frames=128, num_points=1200, width=752,
@@ -241,59 +263,6 @@ def call_ms(fn, iters=50, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def device_ms(fn, only, iters=20, windows=3):
-    """Device time per call of ``fn`` from a ``torch.profiler`` window:
-    (ms of every kernel and copy it launches, ms of the kernels whose name
-    contains ``only``, device operations per call, device events seen).
-
-    The profiler may drop an odd event of the window (19 of 20 launches
-    of one kernel have been seen), so each device operation is counted
-    per call as ceil(its events / calls), at least one for any operation
-    seen at all, and timed as its mean event time that many times. It
-    has also handed over a window with no device event at all (late in
-    a long run), so an empty window is taken again, up to ``windows``
-    times; after that the time per call is taken from CUDA events around
-    ``iters`` calls back to back (an upper bound: the host's launch gaps
-    count where they exceed the kernel; said so in the output), with the
-    device operations unknown (None)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = [evt for evt in prof.key_averages()
-                  if evt.device_type == torch.autograd.DeviceType.CUDA
-                  and evt.count > 0]
-        if (sum(evt.self_device_time_total for evt in events) > 0
-                and any(only in evt.key for evt in events)):
-            break
-        print(f"the profiler saw no device time for {only or 'the call'} "
-              f"in a window of {iters} calls", flush=True)
-    else:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / iters
-        print(f"device time of {only or 'the call'} from CUDA events around "
-              f"{iters} calls: {ms:.4f} ms per call", flush=True)
-        return ms, ms, None, 0
-    per_call = {evt.key: -(-evt.count // iters) for evt in events}
-    us = {evt.key: evt.self_device_time_total / evt.count * per_call[evt.key]
-          for evt in events}
-    return (sum(us.values()) / 1e3,
-            sum(t for key, t in us.items() if only in key) / 1e3,
-            sum(per_call.values()), sum(evt.count for evt in events))
 
 
 def timings(kernel, plain, args, name):
@@ -773,37 +742,6 @@ def pano_config(SlamConfig):
         quality_level=0.001, match_max_dist_2d=30.0)
 
 
-def full_slam_config(SlamConfig, full):
-    """bench.full_slam_world's make_cfg(full): the full-SLAM arm (True) and
-    the VO control with the same keyframe hygiene (False)."""
-    return SlamConfig(
-        num_features=300, ransac_hypotheses=128, max_landmarks=32768,
-        max_keyframes=128, max_inview_landmarks=512, window_cams=24,
-        window_points=2048, window_obs=4096, ba_obs_per_lm=4,
-        ba_max_iters=10, enable_relocalization=full,
-        enable_loop_closure=full, enable_gba_after_loop=full,
-        new_kf_min_inliers=60, kf_require_tracked=True,
-        loop_closing_time_threshold=20, quality_level=0.001,
-        match_max_dist_2d=30.0)
-
-
-def train_vocabulary(images, frames, num_features, dev):
-    """The port's vocabulary, trained with its copy of ``train`` on its
-    own features of the given frames' left images."""
-    from vslam_tpu_torch.frontend.features import extract_features
-    from vslam_tpu_torch.loop import vocabulary as vocab_mod
-
-    pool = []
-    for f in frames:
-        ft = extract_features(torch.as_tensor(images[f][0]).to(dev),
-                              num_features=num_features,
-                              quality_level=0.001)
-        pool.append(ft.bits[ft.valid].cpu().numpy())
-    voc = vocab_mod.train(np.concatenate(pool), k=10, depth=4, seed=0)
-    vocab_mod.set_idf_weights(voc, pool)
-    return voc
-
-
 def keyframe_ate(driver, seq):
     from vslam_tpu_torch.eval import ate
 
@@ -892,12 +830,14 @@ def phase_injected_drift(dev):
     from vslam_tpu_torch.config import SlamConfig
     from vslam_tpu_torch.pipeline.streaming import StreamingSLAM, StreamingVO
     from vslam_tpu_torch.synthetic_pano import generate_pano_loop
+    from vslam_tpu_torch.tools import bench_worlds
 
     t0 = time.perf_counter()
     seq = generate_pano_loop(num_frames=256, revolutions=1.75, seed=2)
     images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
               for l, r in seq.images]
-    voc = train_vocabulary(seq.images, range(0, 256, 8), 600, dev)
+    voc = bench_worlds.train_vocabulary(bench_worlds.vocabulary_pool(
+        seq.images, range(0, 256, 8), 600, dev))
     print(f"injected drift: world and vocabulary ({voc.num_words} words) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -965,21 +905,20 @@ def phase_injected_drift(dev):
     return launches, summary
 
 
-def phase_full_slam(dev, n_frames=288, warm=32, width=752, height=480):
+def phase_full_slam(dev, n_frames=288, warm=32):
     """bench.bench_full_slam's workload on the card: the pano revisit world
-    at 752x480, 288 frames, 1.75 revolutions, 300 features; the full-SLAM
-    arm and the VO control, each 32 untimed frames and 256 timed."""
-    from vslam_tpu_torch.config import SlamConfig
+    of ``bench_worlds.full_slam_world`` (752x480, 288 frames, 1.75
+    revolutions, 300 features); the full-SLAM arm and the VO control, each
+    32 untimed frames and 256 timed. Returns (the SLAM arm's launches, both
+    arms' summaries, the world as ``full_slam_world`` gives it)."""
     from vslam_tpu_torch.pipeline.streaming import StreamingSLAM, StreamingVO
-    from vslam_tpu_torch.synthetic_pano import generate_pano_loop
+    from vslam_tpu_torch.tools import bench_worlds
 
     t0 = time.perf_counter()
-    seq = generate_pano_loop(num_frames=n_frames, width=width,
-                             height=height, revolutions=1.75, seed=2)
+    world = bench_worlds.full_slam_world(n_frames, 300, dev)
+    seq, voc, make_cfg = world
     images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
               for l, r in seq.images]
-    voc = train_vocabulary(seq.images, range(0, n_frames, n_frames // 24),
-                           300, dev)
     print(f"full SLAM: world and vocabulary ({voc.num_words} words) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     traj_len = float(np.linalg.norm(np.diff(seq.poses[:, :3], axis=0),
@@ -989,11 +928,11 @@ def phase_full_slam(dev, n_frames=288, warm=32, width=752, height=480):
     for arm in ("slam", "vo"):
         full = arm == "slam"
         if full:
-            drv = StreamingSLAM(seq.calib, full_slam_config(SlamConfig, True),
-                                voc, max_frames=n_frames + 8, poll_every=32,
+            drv = StreamingSLAM(seq.calib, make_cfg(True), voc,
+                                max_frames=n_frames + 8, poll_every=32,
                                 device=dev)
         else:
-            drv = StreamingVO(seq.calib, full_slam_config(SlamConfig, False),
+            drv = StreamingVO(seq.calib, make_cfg(False),
                               max_frames=n_frames + 8, device=dev)
         drv.run(images[:warm])
         if full:
@@ -1050,14 +989,14 @@ def phase_full_slam(dev, n_frames=288, warm=32, width=752, height=480):
     check(slam["kf_ate_m"] <= 1.15 * vo["kf_ate_m"],
           f"full SLAM: keyframe ATE {slam['kf_ate_m']:.3f} m > 1.15 x the VO "
           f"control's {vo['kf_ate_m']:.3f} m")
-    return slam["launches"], out, seq, voc
+    return slam["launches"], out, world
 
 
 # ---------------------------------------------------------------------------
 # the faithful driver and the command line; the large-map solvers
 # ---------------------------------------------------------------------------
 
-def phase_cli(dev, seq, voc):
+def phase_cli(dev, world):
     """The command line on phase 7's world, from files (see the module
     docstring, phase 8)."""
     import tempfile
@@ -1070,6 +1009,7 @@ def phase_cli(dev, seq, voc):
     from vslam_tpu_torch.pipeline.slam import SlamSystem
     from vslam_tpu_torch.utils import checkpoint
 
+    seq, voc, make_cfg = world
     n_frames = len(seq.images)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1081,7 +1021,7 @@ def phase_cli(dev, seq, voc):
         voc_path = os.path.join(tmp, "voc.txt")
         vocab_mod.save_dbow2_text(voc, voc_path)
         cfg_path = os.path.join(tmp, "config.json")
-        full_slam_config(SlamConfig, True).to_json(cfg_path)
+        make_cfg(True).to_json(cfg_path)
         print(f"command line: dataset ({n_frames} PGM pairs), calibration, "
               f"vocabulary and config written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1215,8 +1155,7 @@ def phase_cli(dev, seq, voc):
         # checkpoint round trip in the middle of a SlamSystem run
         images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
                   for l, r in seq.images[:65]]
-        a = SlamSystem(seq.calib, full_slam_config(SlamConfig, True),
-                       device=dev)
+        a = SlamSystem(seq.calib, make_cfg(True), device=dev)
         a.set_vocabulary(voc)
         for f in range(64):
             a.process_frame(*images[f])
@@ -1224,8 +1163,8 @@ def phase_cli(dev, seq, voc):
         checkpoint.save(a, ckpt)
         info_a = a.process_frame(*images[64])
         b = checkpoint.load(
-            SlamSystem(seq.calib, full_slam_config(SlamConfig, True),
-                       device=dev), ckpt, device=dev)
+            SlamSystem(seq.calib, make_cfg(True), device=dev), ckpt,
+            device=dev)
         info_b = b.process_frame(*images[64])
         same_pose = bool(torch.equal(a.track.current_pose,
                                      b.track.current_pose))
@@ -1410,7 +1349,9 @@ def phase_large_solvers(dev, smi):
 # the multi-sequence path
 # ---------------------------------------------------------------------------
 
-MULTISEQ_S, MULTISEQ_FRAMES = 8, 116
+# bench.bench_multiseq runs 116 frames; cut to 64 to keep the whole
+# script near 720 s with phase 13
+MULTISEQ_S, MULTISEQ_FRAMES = 8, 64
 # A sequence must stay tracked on at least the single-sequence driver's
 # share of the timed frames (world seed 10, same configuration) less this.
 MULTISEQ_TRACKED_MARGIN = 0.05
@@ -1421,7 +1362,9 @@ MULTISEQ_TRACKED_MARGIN = 0.05
 # waits up to S - 1 frames for either and ends worse than the synchronous
 # single-sequence driver.
 MULTISEQ_ATE_FLOOR_M = 0.15
-PROFILED_LOCKSTEP_FRAMES = 16
+# 16 before phase 13 was added: the profiler's processing of a window
+# (~7000 device operations per lockstep frame) is most of this phase's time
+PROFILED_LOCKSTEP_FRAMES = 4
 
 
 def multiseq_config(SlamConfig):
@@ -1433,11 +1376,11 @@ def multiseq_config(SlamConfig):
 
 
 def phase_multiseq(dev, smi, single_vo_fps):
-    """bench.bench_multiseq on the card: 8 worlds of 116 frames at 752x480
-    through ``MultiSeqVO`` in lockstep, 8 warm-up and 108 timed frames, and
+    """bench.bench_multiseq on the card: 8 worlds of 64 frames at 752x480
+    through ``MultiSeqVO`` in lockstep, 8 warm-up and 56 timed frames, and
     the single-sequence ``StreamingVO`` on the first world at the same
     configuration beside it. A second pass gives the time per lockstep
-    frame (a synchronize after each) and, over its last 16 frames, a
+    frame (a synchronize after each) and, over its last 4 frames, a
     ``torch.profiler`` window: device operations and device-to-host copies
     per lockstep frame and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -1946,7 +1889,7 @@ def phase_euroc(dev, smi, kernels, pinhole):
     from vslam_tpu_torch.loop import vocabulary as vocab_mod
     from vslam_tpu_torch.pipeline.slam import SlamSystem
     from vslam_tpu_torch.pipeline.streaming import StreamingVO
-    from vslam_tpu_torch.tools import ate_table
+    from vslam_tpu_torch.tools import ate_table, bench_worlds
 
     # ---- StreamingVO at the benchmark's configuration through ds ----
     t0 = time.perf_counter()
@@ -2017,8 +1960,8 @@ def phase_euroc(dev, smi, kernels, pinhole):
         calib_path = os.path.join(tmp, "calib.json")
         calib_mod.save_calibration(seq.calib, calib_path)
         cfg = bench_config(SlamConfig)
-        voc = train_vocabulary(seq.images, range(0, len(seq.images), 8),
-                               cfg.num_features, dev)
+        voc = bench_worlds.train_vocabulary(bench_worlds.vocabulary_pool(
+            seq.images, range(0, len(seq.images), 8), cfg.num_features, dev))
         voc_path = os.path.join(tmp, "voc.txt")
         vocab_mod.save_dbow2_text(voc, voc_path)
         cfg_path = os.path.join(tmp, "config.json")
@@ -2096,6 +2039,124 @@ def phase_euroc(dev, smi, kernels, pinhole):
     return launches, tool_launches
 
 
+# ---------------------------------------------------------------------------
+# the measurement tools
+# ---------------------------------------------------------------------------
+
+def check_positive_times(record, where):
+    """Every float of a flat record (the tools' times, rates and costs)
+    finite and positive; a stage's device ms, where the profiler measured
+    it, no more than its wall ms (where it saw no event, ``device_ms``
+    gives CUDA events around back-to-back calls, host gaps included)."""
+    for name, value in record.items():
+        if isinstance(value, float):
+            check(math.isfinite(value) and value > 0,
+                  f"{where}: {name} = {value}")
+        if not (isinstance(value, float) and name + "_device" in record):
+            continue
+        if record[name + "_device_ops"] is None:
+            print(f"{where}: {name}'s device ms from CUDA events, not "
+                  f"compared with its wall", flush=True)
+            continue
+        check(record[name + "_device"] <= value,
+              f"{where}: {name} device {record[name + '_device']} ms > "
+              f"wall {value} ms")
+
+
+def phase_tools(dev, smi, world):
+    """The five measurement tools in-process on the card (see the module
+    docstring, phase 13); ``world`` is phase 7's. Returns the launches of
+    the profiled run and of the ablation's run."""
+    import tempfile
+
+    from vslam_tpu_torch.loop import vocabulary as vocab_mod
+    from vslam_tpu_torch.tools import (ablation_reloc, bench_gba_scale,
+                                       bench_vocab, profile_kf_branch,
+                                       profile_stages)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_launches()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- per-stage profile of the faithful driver ----
+        with kernel_inputs() as stage_calls:
+            stages, dt, stage_launches = timed(lambda: profile_stages.main(
+                ["--frames", "20", "--reps", "5"]))
+        print("measurement tools, profile_stages: " + json.dumps(dict(
+            record=stages, launches=stage_launches, seconds=dt, card=smi)),
+            flush=True)
+        check_positive_times(stages, "profile_stages")
+        check(stages["frames"] == 20,
+              f"profile_stages: {stages['frames']} end-to-end frames")
+
+        # ---- the keyframe branch, at the tool's defaults ----
+        kf, dt, _ = timed(lambda: profile_kf_branch.main([]))
+        print("measurement tools, profile_kf_branch: " + json.dumps(dict(
+            record=kf, seconds=dt, card=smi)), flush=True)
+        check_positive_times(kf, "profile_kf_branch")
+        check(kf["keyframe branch (delta)"] > 0,
+              f"profile_kf_branch: delta {kf['keyframe branch (delta)']}")
+
+        # ---- the global BA at 512 and 1024 pairs (phase 9 solves 4096) --
+        rows, dt, _ = timed(lambda: bench_gba_scale.main(
+            ["--pairs", "512,1024", "--out", os.path.join(tmp, "gba.json")]))
+        print("measurement tools, bench_gba_scale: " + json.dumps(dict(
+            rows=rows, seconds=dt, card=smi)), flush=True)
+        for row in rows:
+            check_positive_times(row, f"bench_gba_scale {row['n_pairs']}")
+            check(row["final_cost"] < 0.5 * row["initial_cost"]
+                  and row["iterations"] >= 1,
+                  f"bench_gba_scale {row['n_pairs']} pairs: cost "
+                  f"{row['initial_cost']} -> {row['final_cost']} in "
+                  f"{row['iterations']} iterations")
+
+        # ---- the ORBvoc-scale vocabulary, its descent against the CPU's --
+        (vocab, voc, words), dt, _ = timed(lambda: bench_vocab.bench(
+            6, device=dev))
+        descs, _ = bench_vocab.queries(voc)
+        cpu_words = vocab_mod.DeviceVocabulary(voc, "cpu").words(
+            torch.as_tensor(descs),
+            torch.ones(len(descs), dtype=torch.bool)).numpy()
+        print("measurement tools, bench_vocab: " + json.dumps(dict(
+            record=vocab, seconds=dt, card=smi)), flush=True)
+        check_positive_times(vocab, "bench_vocab")
+        check(np.array_equal(words, cpu_words),
+              f"bench_vocab: the card's descent differs from the CPU's on "
+              f"{int((words != cpu_words).sum())} of {len(words)} "
+              f"descriptors")
+        del voc
+
+        # ---- the ablation's full arm on phase 7's world, deterministic
+        # as phases 6-8 (the other arms take the same kernels' paths) --
+        with deterministic(), kernel_inputs() as ablation_calls:
+            ablation, dt, ablation_launches = timed(
+                lambda: ablation_reloc.main(
+                    ["--variants", "full",
+                     "--out", os.path.join(tmp, "ablation.json")],
+                    world=world))
+        print("measurement tools, ablation_reloc: " + json.dumps(dict(
+            record=ablation, launches=ablation_launches, seconds=dt,
+            card=smi)), flush=True)
+        for row in ablation["rows"]:
+            check(np.isfinite(row["ate_m"]),
+                  f"ablation_reloc {row['variant']}: ATE {row['ate_m']}")
+
+    for name, launches in (("profile_stages", stage_launches),
+                           ("ablation_reloc", ablation_launches)):
+        check(launches["landmark_top2"] > 0 and launches["hamming_top2"] > 0,
+              f"{name}: launches {launches}")
+    r = check_kernel_inputs(
+        {k: stage_calls[k] + ablation_calls[k] for k in stage_calls},
+        "measurement tools")
+    print("measurement tools, kernel inputs: " + json.dumps(r), flush=True)
+    return stage_launches, ablation_launches
+
+
 def sweep_learned_seeds(dev, seeds, smi):
     """``python3 chip_smoke.py --learned-seeds 0 1 2 ...``: phase 11's two
     learned-VO runs over initialization seeds, in deterministic mode, one
@@ -2125,23 +2186,16 @@ def sweep_faithful_seeds(dev, seeds, smi):
     arm without the global BA. One JSON line per run: the keyframe ATE
     every 24 frames, at each closure and at the end, the loops with their
     frames, the global BA's costs, relocalizations, lost frames."""
-    from vslam_tpu_torch.config import SlamConfig
     from vslam_tpu_torch.pipeline.slam import SlamSystem
-    from vslam_tpu_torch.synthetic_pano import generate_pano_loop
+    from vslam_tpu_torch.tools import bench_worlds
 
     n_frames = 288
-    seq = generate_pano_loop(num_frames=n_frames, width=752, height=480,
-                             revolutions=1.75, seed=2)
+    seq, voc, make_cfg = bench_worlds.full_slam_world(n_frames, 300, dev)
     images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
               for l, r in seq.images]
-    voc = train_vocabulary(seq.images, range(0, n_frames, n_frames // 24),
-                           300, dev)
 
     def run(arm, seed, loop, reloc, gba=True):
-        cfg = full_slam_config(SlamConfig, True)
-        cfg.enable_loop_closure = loop
-        cfg.enable_gba_after_loop = loop and gba
-        cfg.enable_relocalization = reloc
+        cfg = make_cfg(True, reloc=reloc, lc=loop, gba=loop and gba)
         cfg.seed = seed
         slam = SlamSystem(seq.calib, cfg, device=dev)
         slam.set_vocabulary(voc)
@@ -2231,11 +2285,10 @@ def main():
     with deterministic():
         drift_launches, _ = phase_injected_drift(dev)
         lap("6 (injected drift)")
-        slam_launches, _, seq, voc = phase_full_slam(dev)
+        slam_launches, _, world = phase_full_slam(dev)
         lap("7 (full SLAM)")
-        cli_runs = phase_cli(dev, seq, voc)
+        cli_runs = phase_cli(dev, world)
         lap("8 (command line)")
-    del seq, voc
     phase_large_solvers(dev, smi)
     lap("9 (large-map solvers, sharded and free-intrinsics BA)")
     multiseq_launches, _ = phase_multiseq(dev, smi, vo_summary["fps"])
@@ -2245,6 +2298,9 @@ def main():
     euroc_launches, euroc_tool_launches = phase_euroc(dev, smi, kernels,
                                                       vo_summary)
     lap("12 (EuRoC: double-sphere, ATE tool, kb4 and eucm)")
+    stage_launches, ablation_launches = phase_tools(dev, smi, world)
+    del world
+    lap("13 (measurement tools)")
     check("jax" not in sys.modules
           and not any(m.split(".")[0] == "vslam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
@@ -2263,6 +2319,8 @@ def main():
              launches_learned_vo=learned_launches[name],
              launches_euroc_ds=euroc_launches[name],
              launches_euroc_ds_tool=euroc_tool_launches[name],
+             launches_profile_stages=stage_launches[name],
+             launches_ablation=ablation_launches[name],
              **kernels[name])
         for name in ("landmark_top2", "hamming_top2")]}))
     print(smi)

@@ -95,6 +95,12 @@ def test_port_imports_no_jax():
                      "vslam_tpu_torch.solvers.relative_pose",
                      "vslam_tpu_torch.tools.calibrate",
                      "vslam_tpu_torch.tools.view_dataset",
+                     "vslam_tpu_torch.tools.bench_worlds",
+                     "vslam_tpu_torch.tools.profile_stages",
+                     "vslam_tpu_torch.tools.profile_kf_branch",
+                     "vslam_tpu_torch.tools.bench_gba_scale",
+                     "vslam_tpu_torch.tools.bench_vocab",
+                     "vslam_tpu_torch.tools.ablation_reloc",
                      "vslam_tpu_torch.viz.overlays",
                      "vslam_tpu_torch.viz.html_viewer",
                      "vslam_tpu_torch.viz.plot_map",

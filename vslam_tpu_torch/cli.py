@@ -69,13 +69,6 @@ def _make_tuner(path: str):
     return poll
 
 
-def _sync(device):
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _finish(args, seq, fids, est_pos, est_poses, lm_valid, lm_pos):
     """Evaluation (the align_svd button, slam.cpp:1712-1722) and the map
     artifact. Returns the ATE (NaN without ground truth)."""
@@ -213,7 +206,7 @@ def main(argv=None):
                 metrics_f.write(json.dumps(info) + "\n")
             if info["kind"] == "keyframe" or i % 50 == 0:
                 print(f"[{i}/{n}] {info}", file=sys.stderr)
-        _sync(slam.device)
+        profiling.sync(slam.device)
     elapsed = time.perf_counter() - t0
     print(f"Processed {n} frames in {elapsed:.1f}s ({n / elapsed:.1f} fps)",
           file=sys.stderr)
@@ -275,7 +268,7 @@ def _main_streaming(args):
         for lo in range(0, n, 64):
             tune_poll(slam)
             slam.run([pf.get(i) for i in range(lo, min(lo + 64, n))])
-        _sync(slam.device)
+        profiling.sync(slam.device)
     elapsed = time.perf_counter() - t0
     print(f"Processed {n} frames in {elapsed:.1f}s ({n / elapsed:.1f} fps, "
           f"streaming driver)", file=sys.stderr)

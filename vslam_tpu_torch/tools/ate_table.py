@@ -41,7 +41,7 @@ import time
 
 import numpy as np
 
-from ..cli import _sync
+from ..utils.profiling import sync
 
 
 def run_vo(seq, seed, device="cuda"):
@@ -184,7 +184,7 @@ def run_real_sequence(dataset_path: str, calib, cfg, voc=None,
         t = time.perf_counter()
         img_l, img_r = pf.get(i)
         tracked += bool(slam.process_frame(img_l, img_r)["ok"])
-        _sync(slam.device)
+        sync(slam.device)
         frame_ms.append((time.perf_counter() - t) * 1e3)
     fps = n / (time.perf_counter() - t0)
     fids, est_pos, _ = slam.keyframe_trajectory()
