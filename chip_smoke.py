@@ -50,14 +50,20 @@ skipped.
 7. Full SLAM: ``bench.full_slam_world``'s port,
    ``vslam_tpu_torch.tools.bench_worlds.full_slam_world`` (752x480 pano
    revisit world, 288 frames, 300 features, a vocabulary trained with the
-   port's ``train`` on its own features), ``poll_every=32``; the
-   full-SLAM arm and the VO control, 32 untimed frames and 256 timed each.
-   Prints frames per second, loops, GBA merges, relocalizations, dropped
-   window observations, the loop counters and timings, keyframe ATE of
-   both arms, peak memory and the kernels' launches, beside the JAX
-   package's TPU figures (not gated on); checks that all 288 frames ran,
-   the trajectory is finite and SLAM keyframe ATE is at most 1.15x the
-   VO control's.
+   port's ``train`` on its own features), ``poll_every=32``, through the
+   benchmark program's ``bench_full_slam``: one timed run of the
+   full-SLAM arm and of the VO control, 32 untimed frames and 256 timed
+   each (the sub-bench's untimed warm-up run is left out: phases 4-6 have
+   warmed the kernels and solvers up), its lines on the emitter phase 14
+   goes on with. Prints frames per second, loops, GBA merges,
+   relocalizations, dropped window observations, the loop counters and
+   timings, keyframe ATE of both arms, peak memory and each arm's
+   launches in its timed frames, beside the JAX package's TPU figures
+   (not gated on); checks that all 288 frames ran, the trajectory is
+   finite, SLAM keyframe ATE is at most 1.15x the VO control's, and in
+   the timed frames the control launched the landmark top-2 once per
+   frame and the descriptor top-2 twice per keyframe, the SLAM arm at
+   least as often.
 
 8. The command line at full width: phase 7's world written to a temporary
    directory as a mav0-layout dataset of binary PGM images with its
@@ -93,9 +99,10 @@ skipped.
    that test's bars: cost below a tenth, fx and cx of both blocks back
    within 1.5 px.
 10. The multi-sequence path at the width of ``bench.bench_multiseq``: 8
-   worlds of 64 frames at 752x480 through ``MultiSeqVO`` in lockstep (8
-   warm-up, 56 timed frames, host clock around ``run`` + synchronize;
-   the bench's 116 frames cut to fit the script's time),
+   worlds of 40 frames at 752x480 through ``MultiSeqVO`` in lockstep (8
+   warm-up, 32 timed frames, host clock around ``run`` + synchronize;
+   the bench's 116 frames, which phase 14 runs, cut to fit the script's
+   time),
    and the single-sequence ``StreamingVO`` on the first world at the same
    configuration. Prints sequence-frames per second beside the
    single-sequence frames per second of that world and of phase 4, ms per
@@ -157,7 +164,8 @@ skipped.
    ``profile_stages --frames 20 --reps 5`` (the faithful driver's stages,
    wall and device ms and device operations per call), ``profile_kf_branch``
    at its defaults, ``bench_gba_scale --pairs 512,1024`` (phase 9 solves
-   the 4096-pair problem), ``bench_vocab`` at depth 6 (1.1M nodes) and
+   the 4096-pair problem), ``bench_vocab`` at depth 5 (111,111 nodes; the
+   tool's default of 6 cut to fit the script's time) and
    ``ablation_reloc --variants full`` on phase 7's world (loop closure,
    global BA and relocalization at ``poll_every=16``), in deterministic
    mode. Each record
@@ -169,6 +177,25 @@ skipped.
    profiled run and by the ablation, and every K1 / K2 call of those runs
    (kept while they ran, so the profiled run's figures include the
    copies) exact against its plain version.
+14. The benchmark program (``vslam_tpu_torch.bench``, the port of
+   ``bench.py``) in process, its lines kept: ``bench_single`` through the
+   streaming driver at the bench's 8 warm-up + 120 timed frames (one run)
+   with ``window_ba_ms`` and ``bench_multiseq`` at its 8 worlds of 116
+   frames (one run), on the emitter that holds phase 7's
+   ``bench_full_slam`` (run there in deterministic mode for that phase's
+   gate; the program itself never is), then ``bench_complete``; and, on a
+   second emitter, ``bench_single`` through the faithful driver
+   (``--driver slam``). Checks: every line parses and holds at most 2048 bytes, the
+   last carries ``bench_complete``; ``euroc_vo_fps`` finite and positive
+   with every timed frame tracked and a keyframe, ``window_ba_ms`` finite
+   and positive; every full-SLAM figure finite, its fps positive and both
+   keyframe ATEs within the orbit's diameter (loops and GBA merges
+   printed, not gated); the sequence-frames per second finite and
+   positive. Launches over each sub-bench's call, warm-up included: the
+   streaming VO's landmark top-2 once per frame (every timed frame is
+   tracked) and descriptor top-2 twice per keyframe, the multi-sequence
+   run's once per lockstep frame and twice per inserted keyframe, the
+   faithful run's at least as often.
 
 ``python3 chip_smoke.py --faithful-seeds 0 1 2 3 4 5`` runs, instead of
 the phases, the faithful driver and its control on phase 7's world over
@@ -226,15 +253,6 @@ INT8_OPS_PER_S = 1979e12  # int8 tensor cores: the fastest integer rate
 def check(cond, msg):
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def bench_config(SlamConfig):
-    return SlamConfig(
-        enable_relocalization=False,
-        enable_loop_closure=False,
-        max_landmarks=65536,
-        max_keyframes=1024,
-    )
 
 
 def small_config(SlamConfig):
@@ -600,8 +618,7 @@ def phase_kernels(dev):
 
 
 def phase_main_path(dev):
-    from vslam_tpu_torch import synthetic
-    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch import bench, synthetic
     from vslam_tpu_torch.eval import ate
     from vslam_tpu_torch.ops import cuda_hamming
     from vslam_tpu_torch.pipeline.streaming import StreamingVO
@@ -613,7 +630,7 @@ def phase_main_path(dev):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     frames = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
               for l, r in seq.images]
-    vo = StreamingVO(seq.calib, bench_config(SlamConfig),
+    vo = StreamingVO(seq.calib, bench.vo_config(),
                      max_frames=len(frames), device=dev)
     vo.run(frames[:WARMUP_FRAMES])
     torch.cuda.synchronize()
@@ -905,56 +922,77 @@ def phase_injected_drift(dev):
     return launches, summary
 
 
-def phase_full_slam(dev, n_frames=288, warm=32):
-    """bench.bench_full_slam's workload on the card: the pano revisit world
-    of ``bench_worlds.full_slam_world`` (752x480, 288 frames, 1.75
-    revolutions, 300 features); the full-SLAM arm and the VO control, each
-    32 untimed frames and 256 timed. Returns (the SLAM arm's launches, both
-    arms' summaries, the world as ``full_slam_world`` gives it)."""
-    from vslam_tpu_torch.pipeline.streaming import StreamingSLAM, StreamingVO
+def counting(cls):
+    """``cls`` whose instances keep, in ``run_launches``, the kernels'
+    launches of each call of ``run``: the benchmark program builds its
+    drivers itself, and this reads each run's own counts without resetting
+    the counters."""
+    class Counting(cls):
+        def run(self, frames):
+            before = read_launches()
+            n = super().run(frames)
+            after = read_launches()
+            self.run_launches = getattr(self, "run_launches", []) + [
+                {k: after[k] - before[k] for k in after}]
+            return n
+
+    return Counting
+
+
+def phase_full_slam(dev, em, n_frames=288):
+    """bench.bench_full_slam on the card, in deterministic mode: the pano
+    revisit world of ``bench_worlds.full_slam_world`` (752x480, 288
+    frames, 1.75 revolutions, 300 features), one timed run of the
+    full-SLAM arm and the VO control, 32 untimed frames and 256 timed
+    each, without the sub-bench's warm-up run (phases 4-6 have warmed the
+    kernels and solvers up). ``em`` is the benchmark emitter that phase 14
+    goes on with. Returns (the SLAM arm's launches in its 256 timed frames,
+    both arms' summaries, the world as ``full_slam_world`` gives it)."""
+    from unittest import mock
+
+    from vslam_tpu_torch import bench
     from vslam_tpu_torch.tools import bench_worlds
 
     t0 = time.perf_counter()
     world = bench_worlds.full_slam_world(n_frames, 300, dev)
-    seq, voc, make_cfg = world
-    images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
-              for l, r in seq.images]
+    seq, voc, _ = world
     print(f"full SLAM: world and vocabulary ({voc.num_words} words) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     traj_len = float(np.linalg.norm(np.diff(seq.poses[:, :3], axis=0),
                                     axis=1).sum())
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(bench, "StreamingSLAM",
+                           counting(bench.StreamingSLAM)), \
+            mock.patch.object(bench, "StreamingVO",
+                              counting(bench.StreamingVO)):
+        drivers = bench.bench_full_slam(em, world=world, max_runs=1,
+                                        warmup_run=False, device=dev)
+    torch.cuda.synchronize()
+    print("full SLAM: the sub-bench's call (timed run, VO control): " +
+          json.dumps(dict(
+              seconds=time.perf_counter() - t0,
+              peak_memory_bytes=int(torch.cuda.max_memory_allocated()))),
+          flush=True)
+
     out = {}
-    for arm in ("slam", "vo"):
+    warm = 32   # bench_full_slam's untimed prefix of every run
+    for (arm, fps), drv in zip((("slam", em.out["full_slam_fps"]),
+                                ("vo", em.out["full_slam_vo_control_fps"])),
+                               drivers):
         full = arm == "slam"
-        if full:
-            drv = StreamingSLAM(seq.calib, make_cfg(True), voc,
-                                max_frames=n_frames + 8, poll_every=32,
-                                device=dev)
-        else:
-            drv = StreamingVO(seq.calib, make_cfg(False),
-                              max_frames=n_frames + 8, device=dev)
-        drv.run(images[:warm])
-        if full:
-            drv.poll()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        drv.run(images[warm:])
-        if full:
-            drv._merge_gba_if_ready()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         res = drv.results()
         r = dict(
-            frames=int(res["frames"]), fps=(n_frames - warm) / dt,
+            frames=int(res["frames"]), fps=fps,
             kf_ate_m=keyframe_ate(drv, seq),
             keyframes=int(res["is_keyframe"].sum()),
+            timed_keyframes=int(res["is_keyframe"][warm:].sum()),
             tracked=int(res["tracked_ok"].sum()),
             obs_drop_max=int(res["window_obs_dropped"].max()),
-            peak_memory_bytes=int(torch.cuda.max_memory_allocated()),
-            launches=read_launches(),
+            # the second run call is the timed one
+            launches=drv.run_launches[1],
             trajectory_finite=bool(np.isfinite(res["trajectory"]).all()))
         if full:
             r.update(
@@ -989,6 +1027,19 @@ def phase_full_slam(dev, n_frames=288, warm=32):
     check(slam["kf_ate_m"] <= 1.15 * vo["kf_ate_m"],
           f"full SLAM: keyframe ATE {slam['kf_ate_m']:.3f} m > 1.15 x the VO "
           f"control's {vo['kf_ate_m']:.3f} m")
+    # in the timed frames the control launches the landmark top-2 once per
+    # frame and the descriptor top-2 twice per keyframe; the SLAM arm adds
+    # its closure and relocalization calls
+    timed = n_frames - warm
+    check(vo["launches"] == dict(landmark_top2=timed,
+                                 hamming_top2=2 * vo["timed_keyframes"]),
+          f"full SLAM, vo arm: launches {vo['launches']} in {timed} frames, "
+          f"{vo['timed_keyframes']} keyframes")
+    check(slam["launches"]["landmark_top2"] >= timed
+          and slam["launches"]["hamming_top2"]
+          >= 2 * slam["timed_keyframes"],
+          f"full SLAM, slam arm: launches {slam['launches']} in {timed} "
+          f"frames, {slam['timed_keyframes']} keyframes")
     return slam["launches"], out, world
 
 
@@ -1349,9 +1400,9 @@ def phase_large_solvers(dev, smi):
 # the multi-sequence path
 # ---------------------------------------------------------------------------
 
-# bench.bench_multiseq runs 116 frames; cut to 64 to keep the whole
-# script near 720 s with phase 13
-MULTISEQ_S, MULTISEQ_FRAMES = 8, 64
+# bench.bench_multiseq runs 116 frames (phase 14 runs it so); cut to 40
+# here to keep the whole script near 850 s with phases 13 and 14
+MULTISEQ_S, MULTISEQ_FRAMES = 8, 40
 # A sequence must stay tracked on at least the single-sequence driver's
 # share of the timed frames (world seed 10, same configuration) less this.
 MULTISEQ_TRACKED_MARGIN = 0.05
@@ -1367,17 +1418,9 @@ MULTISEQ_ATE_FLOOR_M = 0.15
 PROFILED_LOCKSTEP_FRAMES = 4
 
 
-def multiseq_config(SlamConfig):
-    """bench.bench_multiseq's configuration."""
-    return SlamConfig(
-        enable_relocalization=False, enable_loop_closure=False,
-        max_landmarks=16384, max_keyframes=128, window_points=4096,
-        window_obs=10240)
-
-
 def phase_multiseq(dev, smi, single_vo_fps):
-    """bench.bench_multiseq on the card: 8 worlds of 64 frames at 752x480
-    through ``MultiSeqVO`` in lockstep, 8 warm-up and 56 timed frames, and
+    """bench.bench_multiseq on the card: 8 worlds of 40 frames at 752x480
+    through ``MultiSeqVO`` in lockstep, 8 warm-up and 32 timed frames, and
     the single-sequence ``StreamingVO`` on the first world at the same
     configuration beside it. A second pass gives the time per lockstep
     frame (a synchronize after each) and, over its last 4 frames, a
@@ -1385,8 +1428,7 @@ def phase_multiseq(dev, smi, single_vo_fps):
     per lockstep frame and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vslam_tpu_torch import synthetic
-    from vslam_tpu_torch.config import SlamConfig
+    from vslam_tpu_torch import bench, synthetic
     from vslam_tpu_torch.eval import ate
     from vslam_tpu_torch.parallel.multiseq_runner import MultiSeqVO
     from vslam_tpu_torch.pipeline.streaming import StreamingVO
@@ -1403,7 +1445,7 @@ def phase_multiseq(dev, smi, single_vo_fps):
     print(f"multi-sequence: {S} worlds of {F} frames 752x480 generated and "
           f"packed {list(packed.shape)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    cfg = multiseq_config(SlamConfig)
+    cfg = bench.multiseq_config()
 
     def timed_ate(traj, world):
         return float(ate.align_svd(traj[warm:F, :3],
@@ -1882,7 +1924,7 @@ def phase_euroc(dev, smi, kernels, pinhole):
     double-sphere ``StreamingVO`` run and of the ATE tool's run."""
     import tempfile
 
-    from vslam_tpu_torch import synthetic
+    from vslam_tpu_torch import bench, synthetic
     from vslam_tpu_torch.config import SlamConfig
     from vslam_tpu_torch.eval import ate
     from vslam_tpu_torch.io import calib as calib_mod
@@ -1898,7 +1940,7 @@ def phase_euroc(dev, smi, kernels, pinhole):
     frames = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
               for l, r in seq.images]
     t_world = time.perf_counter() - t0
-    vo = StreamingVO(seq.calib, bench_config(SlamConfig),
+    vo = StreamingVO(seq.calib, bench.vo_config(),
                      max_frames=len(frames), device=dev)
     check(vo.cam_name == "ds", f"EuRoC ds: camera {vo.cam_name}")
     vo.run(frames[:WARMUP_FRAMES])
@@ -1959,7 +2001,7 @@ def phase_euroc(dev, smi, kernels, pinhole):
         synthetic.write_mav0(seq, os.path.join(tmp, "EUROC_DS", "mav0"))
         calib_path = os.path.join(tmp, "calib.json")
         calib_mod.save_calibration(seq.calib, calib_path)
-        cfg = bench_config(SlamConfig)
+        cfg = bench.vo_config()
         voc = bench_worlds.train_vocabulary(bench_worlds.vocabulary_pool(
             seq.images, range(0, len(seq.images), 8), cfg.num_features, dev))
         voc_path = os.path.join(tmp, "voc.txt")
@@ -2116,8 +2158,10 @@ def phase_tools(dev, smi, world):
                   f"{row['iterations']} iterations")
 
         # ---- the ORBvoc-scale vocabulary, its descent against the CPU's --
+        # depth 5, not the tool's 6: the text save and parse of 1.1M
+        # nodes took ~30 s of the script, which phase 14 needs
         (vocab, voc, words), dt, _ = timed(lambda: bench_vocab.bench(
-            6, device=dev))
+            5, device=dev))
         descs, _ = bench_vocab.queries(voc)
         cpu_words = vocab_mod.DeviceVocabulary(voc, "cpu").words(
             torch.as_tensor(descs),
@@ -2155,6 +2199,136 @@ def phase_tools(dev, smi, world):
         "measurement tools")
     print("measurement tools, kernel inputs: " + json.dumps(r), flush=True)
     return stage_launches, ablation_launches
+
+
+# ---------------------------------------------------------------------------
+# the benchmark program
+# ---------------------------------------------------------------------------
+
+def kept_emitter():
+    """A benchmark ``Emitter`` that also keeps, in ``lines``, each line it
+    prints."""
+    from vslam_tpu_torch.bench import Emitter
+
+    class Kept(Emitter):
+        def __init__(self):
+            super().__init__(900.0)
+            self.lines = []
+
+        def emit(self, **fields):
+            super().emit(**fields)
+            self.lines.append(json.dumps(self.out))   # the line it printed
+
+    return Kept()
+
+
+def bench_lines(em, where):
+    """The lines a ``kept_emitter`` printed: each parses and holds at most
+    ``LINE_CAP`` bytes, the last carries ``bench_complete``. Returns the
+    last."""
+    raw = em.lines
+    check(raw, f"{where}: no line printed")
+    for x in raw:
+        check(len(x.encode()) <= em.LINE_CAP,
+              f"{where}: a line of {len(x.encode())} bytes")
+        json.loads(x)
+    last = json.loads(raw[-1])
+    check(last.get("bench_complete") is True,
+          f"{where}: the last line lacks bench_complete")
+    return last
+
+
+def phase_bench(dev, smi, em):
+    """The benchmark program's sub-benches in process on the card (see the
+    module docstring, phase 14). ``em`` is the ``kept_emitter`` that holds
+    phase 7's full-SLAM sub-bench. Returns the launches of each sub-bench's
+    call."""
+    from vslam_tpu_torch import bench
+
+    def call(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_launches()
+
+    frames, calib, src = bench.load_workload(False, WARMUP_FRAMES + 120)
+    vo, t_vo, vo_launches = call(lambda: bench.bench_single(
+        em, frames, calib, False, src, vo_budget_s=240.0, max_runs=1,
+        device=dev))
+    ms, t_ms, ms_launches = call(lambda: bench.bench_multiseq(
+        em, max_runs=1, device=dev))
+    em.emit(bench_complete=True)
+    line = bench_lines(em, "bench")
+    em_f = kept_emitter()
+    fa, t_fa, fa_launches = call(lambda: bench.bench_single(
+        em_f, frames, calib, True, src, vo_budget_s=240.0, device=dev))
+    em_f.emit(bench_complete=True)
+    line_f = bench_lines(em_f, "bench --driver slam")
+
+    res, ms_res = vo.results(), ms.results()
+    fa_kfs = sum(1 for s in fa.stats if s["kind"] == "keyframe")
+    summary = dict(
+        seconds=dict(vo=t_vo, multiseq=t_ms, faithful=t_fa),
+        euroc_vo_fps=line["value"], window_ba_ms=line["window_ba_ms"],
+        faithful_fps=line_f["value"], faithful_keyframes=line_f["keyframes"],
+        faithful_tracked=line_f["tracked_ok"],
+        full_slam={k[len("full_slam_"):]: v for k, v in line.items()
+                   if k.startswith("full_slam_")},
+        multiseq_seq_frames_per_sec=line["multiseq_seq_frames_per_sec"],
+        launches=dict(vo=vo_launches, faithful=fa_launches,
+                      multiseq=ms_launches),
+        card=smi)
+    print("bench: " + json.dumps(summary), flush=True)
+
+    def finite_positive(value, what):
+        check(isinstance(value, (int, float)) and math.isfinite(value)
+              and value > 0, f"bench: {what} = {value}")
+
+    check(line["metric"] == "euroc_vo_fps", f"bench: metric {line['metric']}")
+    finite_positive(line["value"], "euroc_vo_fps")
+    check(line["tracked_ok"] == line["frames"] == 120,
+          f"bench: {line['tracked_ok']} of {line['frames']} timed frames "
+          f"tracked")
+    check(line["keyframes"] >= 1, "bench: no keyframe in the timed frames")
+    finite_positive(line["window_ba_ms"], "window_ba_ms")
+    for name in ("fps", "fps_min", "vo_control_fps", "traj_len_m"):
+        finite_positive(line["full_slam_" + name], "full_slam_" + name)
+    for name in ("ate_m", "vo_control_ate_m", "drift_pct"):
+        v = line["full_slam_" + name]
+        check(math.isfinite(v), f"bench: full_slam_{name} = {v}")
+    for name in ("ate_m", "vo_control_ate_m"):
+        check(line["full_slam_" + name] < 2 * PANO_ORBIT_RADIUS_M,
+              f"bench: full_slam_{name} {line['full_slam_' + name]} m, "
+              f"beyond the orbit's diameter")
+    finite_positive(line["multiseq_seq_frames_per_sec"],
+                    "multiseq_seq_frames_per_sec")
+    finite_positive(line_f["value"], "euroc_vo_fps (faithful driver)")
+    check(line_f["keyframes"] >= 1, "bench --driver slam: no keyframe")
+
+    vo_frames, vo_kfs = int(res["frames"]), int(res["is_keyframe"].sum())
+    check(vo_launches["landmark_top2"] == vo_frames,
+          f"bench VO: landmark_top2 launched "
+          f"{vo_launches['landmark_top2']} times in {vo_frames} frames")
+    check(vo_launches["hamming_top2"] == 2 * vo_kfs,
+          f"bench VO: hamming_top2 launched {vo_launches['hamming_top2']} "
+          f"times for {vo_kfs} keyframes")
+    ms_frames = int(ms_res["frames"])
+    ms_kfs = int(ms_res["is_keyframe"].sum())
+    check(ms_launches["landmark_top2"] == ms_frames,
+          f"bench multi-sequence: landmark_top2 launched "
+          f"{ms_launches['landmark_top2']} times in {ms_frames} lockstep "
+          f"frames")
+    check(ms_launches["hamming_top2"] == 2 * ms_kfs > 0,
+          f"bench multi-sequence: hamming_top2 launched "
+          f"{ms_launches['hamming_top2']} times for {ms_kfs} keyframes")
+    check(fa_launches["landmark_top2"] >= len(fa.stats)
+          and fa_launches["hamming_top2"] >= 2 * fa_kfs,
+          f"bench --driver slam: launches {fa_launches} in "
+          f"{len(fa.stats)} frames, {fa_kfs} keyframes")
+    return dict(bench_vo=vo_launches, bench_faithful=fa_launches,
+                bench_multiseq=ms_launches)
 
 
 def sweep_learned_seeds(dev, seeds, smi):
@@ -2282,10 +2456,11 @@ def main():
     lap("4 (VO main path)")
     phase_small_world(dev)
     lap("5 (small world)")
+    em = kept_emitter()
     with deterministic():
         drift_launches, _ = phase_injected_drift(dev)
         lap("6 (injected drift)")
-        slam_launches, _, world = phase_full_slam(dev)
+        slam_launches, _, world = phase_full_slam(dev, em)
         lap("7 (full SLAM)")
         cli_runs = phase_cli(dev, world)
         lap("8 (command line)")
@@ -2299,8 +2474,10 @@ def main():
                                                       vo_summary)
     lap("12 (EuRoC: double-sphere, ATE tool, kb4 and eucm)")
     stage_launches, ablation_launches = phase_tools(dev, smi, world)
-    del world
     lap("13 (measurement tools)")
+    del world
+    bench_launches = phase_bench(dev, smi, em)
+    lap("14 (benchmark program)")
     check("jax" not in sys.modules
           and not any(m.split(".")[0] == "vslam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
@@ -2321,6 +2498,7 @@ def main():
              launches_euroc_ds_tool=euroc_tool_launches[name],
              launches_profile_stages=stage_launches[name],
              launches_ablation=ablation_launches[name],
+             **{f"launches_{k}": v[name] for k, v in bench_launches.items()},
              **kernels[name])
         for name in ("landmark_top2", "hamming_top2")]}))
     print(smi)
