@@ -197,6 +197,28 @@ skipped.
    run's once per lockstep frame and twice per inserted keyframe, the
    faithful run's at least as often.
 
+15. The driver entry points (``vslam_tpu_torch.entry``, the port of
+   ``__graft_entry__.py``): ``entry()``'s tracking step on the card, once
+   with its bound draws and once with draws taken from the CPU port's
+   matches, beside the CPU port's step on the same inputs (matches,
+   candidates, counts and descriptors equal, pose within 1e-4);
+   ``dryrun_multichip(8)`` twice (cold, then warm) on a mesh that lists
+   the card 8 times (batched tracking, the sharded global BA, the split
+   SuperPoint training step: poses finite, cost not rising, loss finite);
+   then tests/test_multichip_scale.py's EuRoC-scale batched step
+   (``entry.FULL_WIDTH_STEP``: 8 sequences at 752x480, 1500 features)
+   once untimed and 5 times timed.
+   Prints ms per call and peak memory of each. Checks: the landmark
+   top-2 once per tracking call (the sequence axis on its grid), the
+   descriptor top-2 never, and every landmark top-2 call of the phase
+   exact against its plain version; the kernel is timed at the
+   EuRoC-scale step's shape (``entry_full_width_shape``).
+
+Every stored kernel time carries where it came from (``ms_source``,
+``plain_ms_source``): ``"profiler"`` (device events of a
+``torch.profiler`` window) or ``"cuda_events_upper_bound"`` (the profiler
+saw no event, so CUDA events around back-to-back calls: an upper bound).
+
 ``python3 chip_smoke.py --faithful-seeds 0 1 2 3 4 5`` runs, instead of
 the phases, the faithful driver and its control on phase 7's world over
 those RANSAC seeds (``sweep_faithful_seeds``): the measurement behind
@@ -218,6 +240,7 @@ The last lines are one JSON object describing the kernels, the card's
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -283,18 +306,34 @@ def call_ms(fn, iters=50, warmup=5):
     return statistics.median(times)
 
 
+def ms_source(seen):
+    """Where a ``device_ms`` time came from: the profiler's device events,
+    or (none seen) CUDA events around back-to-back calls, an upper bound."""
+    return "profiler" if seen else "cuda_events_upper_bound"
+
+
 def timings(kernel, plain, args, name):
     """Kernel and plain version timed at the same inputs, the kernel as
     the main path calls it: its ``{name}_kernel`` device time is the
-    kernel alone."""
+    kernel alone. ``ms_source`` and ``plain_ms_source`` say where each
+    time came from (``ms_source``)."""
     ms, kernel_only_ms, ops, seen = device_ms(lambda: kernel(*args),
                                               f"{name}_kernel")
+    plain_ms, _, _, plain_seen = device_ms(lambda: plain(*args), "")
     return dict(
-        ms=ms, kernel_only_ms=kernel_only_ms, device_ops_per_call=ops,
-        device_events_seen=seen,
-        plain_ms=device_ms(lambda: plain(*args), "")[0],
+        ms=ms, ms_source=ms_source(seen), kernel_only_ms=kernel_only_ms,
+        device_ops_per_call=ops, device_events_seen=seen,
+        plain_ms=plain_ms, plain_ms_source=ms_source(plain_seen),
         call_ms=call_ms(lambda: kernel(*args)),
         plain_call_ms=call_ms(lambda: plain(*args)))
+
+
+def at_shape(t, shape, b_ms, b_by, **extra):
+    """A kernel's record at one more shape, from ``timings``' ``t``."""
+    return dict(shape=shape, ms=t["ms"], ms_source=t["ms_source"],
+                plain_ms=t["plain_ms"], plain_ms_source=t["plain_ms_source"],
+                call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
+                bound_ms=b_ms, bound_by=b_by, **extra)
 
 
 def bound(nbytes, ops_s):
@@ -559,13 +598,12 @@ def phase_kernels(dev):
     check(t["device_ops_per_call"] == 1 and t["kernel_only_ms"] == t["ms"],
           f"landmark_top2 over S=8 ran {t['device_ops_per_call']} device "
           f"operations per call, not its one kernel")
-    report["landmark_top2"]["multiseq_shape"] = dict(
-        shape="S=8 N=1500 P=2048 B=4", ms=t["ms"], plain_ms=t["plain_ms"],
-        call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
-        bound_ms=b_ms, bound_by=b_by, device_ops_per_call=1,
+    report["landmark_top2"]["multiseq_shape"] = at_shape(
+        t, "S=8 N=1500 P=2048 B=4", b_ms, b_by, device_ops_per_call=1,
         gated_per_keypoint=per_kp)
     print(f"kernel landmark_top2 at S=8 N=1500 P=2048 B=4: exact, bit-equal "
-          f"to 8 launches; device {t['ms']:.4f} ms in one operation (plain "
+          f"to 8 launches; device ({t['ms_source']}) {t['ms']:.4f} ms in one "
+          f"operation (plain "
           f"{t['plain_ms']:.4f}); per call with host {t['call_ms']:.4f} ms "
           f"(plain {t['plain_call_ms']:.4f}); bound {b_ms * 1e3:.3f} us by "
           f"{b_by}; {per_kp:.2f} gated landmarks per valid keypoint",
@@ -587,11 +625,9 @@ def phase_kernels(dev):
         check(e == 0, f"{name} differs from its plain version at {shape}")
         t = timings(kernel, plain, args, name)
         b_ms, b_by = bound_of(*args)
-        report[name]["slam_shape"] = dict(
-            shape=shape, ms=t["ms"], plain_ms=t["plain_ms"],
-            call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
-            bound_ms=b_ms, bound_by=b_by)
-        print(f"kernel {name} at {shape}: exact; device {t['ms']:.4f} ms "
+        report[name]["slam_shape"] = at_shape(t, shape, b_ms, b_by)
+        print(f"kernel {name} at {shape}: exact; device ({t['ms_source']}) "
+              f"{t['ms']:.4f} ms "
               f"(plain {t['plain_ms']:.4f}); per call with host "
               f"{t['call_ms']:.4f} ms (plain {t['plain_call_ms']:.4f}); "
               f"bound {b_ms * 1e3:.3f} us by {b_by}", flush=True)
@@ -602,7 +638,8 @@ def phase_kernels(dev):
               f"{name} ran {r['device_ops_per_call']} device operations per "
               f"call, not its one kernel")
         print(f"kernel {name}: exact vs plain in every case; device "
-              f"{r['ms']:.4f} ms per call as the main path calls it "
+              f"({r['ms_source']}) {r['ms']:.4f} ms per call as the main "
+              f"path calls it "
               f"({r['device_ops_per_call']} device operation, "
               f"{r['device_events_seen']} events seen in 20 calls), "
               f"{r['kernel_only_ms']:.4f} ms kernel alone (plain "
@@ -1718,27 +1755,29 @@ def check_learned_launches(r, where):
 
 
 def time_at_shape(calls, kernels, key, path):
-    """Each kernel timed at its last kept call of a run (``calls``, from
-    ``kernel_inputs``), as ``slam_shape`` at the SLAM slice's:
-    ``kernels[name][key]``; ``path`` names the run in the printout."""
+    """Each kernel that ran timed at its last kept call of a run
+    (``calls``, from ``kernel_inputs``), as ``slam_shape`` at the SLAM
+    slice's: ``kernels[name][key]``; ``path`` names the run in the
+    printout."""
     from vslam_tpu_torch.ops import cuda_hamming, hamming
 
     for name, plain, bound_of in (
             ("landmark_top2", hamming.landmark_top2_plain,
              lambda *a: landmark_bound(*a)[:2]),
             ("hamming_top2", hamming.hamming_top2_plain, hamming_bound)):
+        if not calls[name]:
+            continue
         args = calls[name][-1]
-        shape = (f"N={args[0].shape[0]} P={args[3].shape[0]} "
-                 f"B={args[3].shape[1]}" if name == "landmark_top2" else
+        seqs = f"S={args[0].shape[0]} " if args[0].dim() == 3 else ""
+        shape = (f"{seqs}N={args[0].shape[-2]} P={args[3].shape[-3]} "
+                 f"B={args[3].shape[-2]}" if name == "landmark_top2" else
                  f"N={args[0].shape[0]} M={args[1].shape[0]}")
         t = timings(getattr(cuda_hamming, name), plain, args, name)
         b_ms, b_by = bound_of(*args)
-        kernels[name][key] = dict(
-            shape=shape, ms=t["ms"], plain_ms=t["plain_ms"],
-            call_ms=t["call_ms"], plain_call_ms=t["plain_call_ms"],
-            bound_ms=b_ms, bound_by=b_by)
+        kernels[name][key] = at_shape(t, shape, b_ms, b_by)
         print(f"kernel {name} at the {path} {shape}: device "
-              f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}); per call with "
+              f"({t['ms_source']}) {t['ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f}, {t['plain_ms_source']}); per call with "
               f"host {t['call_ms']:.4f} ms (plain {t['plain_call_ms']:.4f}); "
               f"bound {b_ms * 1e3:.3f} us by {b_by}", flush=True)
 
@@ -2331,6 +2370,117 @@ def phase_bench(dev, smi, em):
                 bench_multiseq=ms_launches)
 
 
+# ---------------------------------------------------------------------------
+# the driver entry points
+# ---------------------------------------------------------------------------
+
+# the EuRoC-scale batched step (entry.FULL_WIDTH_STEP) on 8 sequences
+ENTRY_FULL_WIDTH_S = 8
+ENTRY_FULL_WIDTH_CALLS = 5   # timed, after one untimed
+
+
+def phase_entry(dev, smi, kernels):
+    """The driver entry points on the card (see the module docstring,
+    phase 15). Adds the landmark top-2's ``entry_full_width_shape`` to
+    ``kernels``. Returns the phase's launches."""
+    from vslam_tpu_torch import entry
+    from vslam_tpu_torch.solvers import pnp
+
+    # ---- entry(): the card against the CPU port on the same inputs ----
+    fn, args = entry.entry(dev)
+    fn_c, args_c = entry.entry("cpu")
+    idx = pnp.sample_minimal(fn_c(*args_c).match_lm >= 0, 64, 6,
+                             torch.Generator().manual_seed(0))
+    res_c = fn_c(*args_c, sample_idx=idx)
+    full = entry.FULL_WIDTH_STEP
+    mesh = entry.data_mesh(ENTRY_FULL_WIDTH_S, dev)
+    full_args = entry.multiseq_inputs(ENTRY_FULL_WIDTH_S, full, seed=5,
+                                      device=mesh.axis_devices("data")[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with kernel_inputs() as calls:
+        t0 = time.perf_counter()
+        res_g = fn(*args)             # the bound generator's draws
+        res = fn(*args, sample_idx=idx.to(dev))
+        torch.cuda.synchronize()
+        entry_ms = (time.perf_counter() - t0) * 1e3 / 2
+        entry_peak = torch.cuda.max_memory_allocated()
+        # ---- dryrun_multichip(8): cold, then warm ----
+        dryruns = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = entry.dryrun_multichip(8, dev)
+            dryruns.append(dict(
+                seconds=time.perf_counter() - t0,
+                **{k: r[k] for k in r if k.endswith("_ms")},
+                initial_cost=float(r["ba"]["initial_cost"]),
+                final_cost=float(r["ba"]["final_cost"]),
+                loss=float(r["loss"]),
+                poses_finite=bool(torch.isfinite(r["poses"]).all()),
+                peak_memory_bytes=int(torch.cuda.max_memory_allocated())))
+        # ---- the EuRoC-scale batched step (8 x 752x480) ----
+        out = entry.multiseq_step(mesh, full_args, full)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        full_ms = []
+        for _ in range(ENTRY_FULL_WIDTH_CALLS):
+            t0 = time.perf_counter()
+            out = entry.multiseq_step(mesh, full_args, full)
+            torch.cuda.synchronize()
+            full_ms.append((time.perf_counter() - t0) * 1e3)
+        full_peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+
+    def summary(r):
+        return dict(num_matches=int(r.num_matches),
+                    had_candidate=int(r.had_candidate.sum()),
+                    features=int(r.feats.valid.sum()),
+                    pose=[round(float(x), 6) for x in r.T_w_c.cpu()])
+
+    pose_err = float((res.T_w_c.cpu() - res_c.T_w_c).abs().max())
+    record = dict(
+        entry=dict(card=summary(res), cpu=summary(res_c),
+                   card_own_draws=summary(res_g), pose_max_abs_err=pose_err,
+                   ms_per_call=entry_ms, peak_memory_bytes=int(entry_peak)),
+        dryrun_multichip_8=dryruns,
+        full_width=dict(S=ENTRY_FULL_WIDTH_S, **dataclasses.asdict(full),
+                        median_ms=statistics.median(
+            full_ms), ms=full_ms, peak_memory_bytes=int(full_peak),
+            num_matches=[int(x) for x in out.num_matches.cpu()],
+            poses_finite=bool(torch.isfinite(out.T_w_c).all())),
+        launches=launches, card=smi)
+    print("driver entry points: " + json.dumps(record), flush=True)
+
+    for name in ("match_lm", "had_candidate", "num_matches", "pnp_ok"):
+        check(torch.equal(getattr(res, name).cpu(), getattr(res_c, name)),
+              f"entry(): the card's {name} differs from the CPU port's")
+    check(torch.equal(res.feats.bits.cpu(), res_c.feats.bits),
+          "entry(): the card's descriptors differ from the CPU port's")
+    check(pose_err <= 1e-4, f"entry(): pose {pose_err} from the CPU port's")
+    check(bool(torch.isfinite(res_g.T_w_c).all()),
+          "entry(): the bound draws gave a non-finite pose")
+    for d in dryruns:
+        check(d["poses_finite"] and math.isfinite(d["loss"])
+              and d["final_cost"] <= d["initial_cost"] + 1e-3,
+              f"dryrun_multichip(8): {d}")
+    check(record["full_width"]["poses_finite"],
+          "the 8 x 752x480 batched step gave a non-finite pose")
+    # one launch per call: the sequence axis is the kernel's grid y axis
+    want = 2 + len(dryruns) + 1 + ENTRY_FULL_WIDTH_CALLS
+    check(launches["landmark_top2"] == want
+          and launches["hamming_top2"] == 0,
+          f"driver entry points: launches {launches}, want landmark_top2 "
+          f"{want}")
+    checked = check_kernel_inputs(calls, "driver entry points")
+    print(f"driver entry points, kernel inputs: {json.dumps(checked)}",
+          flush=True)
+    time_at_shape(calls, kernels, "entry_full_width_shape",
+                  "8 x 752x480 batched step's")
+    return launches
+
+
 def sweep_learned_seeds(dev, seeds, smi):
     """``python3 chip_smoke.py --learned-seeds 0 1 2 ...``: phase 11's two
     learned-VO runs over initialization seeds, in deterministic mode, one
@@ -2478,6 +2628,8 @@ def main():
     del world
     bench_launches = phase_bench(dev, smi, em)
     lap("14 (benchmark program)")
+    entry_launches = phase_entry(dev, smi, kernels)
+    lap("15 (driver entry points)")
     check("jax" not in sys.modules
           and not any(m.split(".")[0] == "vslam_tpu" for m in sys.modules),
           "the port imported jax or the JAX package")
@@ -2499,6 +2651,7 @@ def main():
              launches_profile_stages=stage_launches[name],
              launches_ablation=ablation_launches[name],
              **{f"launches_{k}": v[name] for k, v in bench_launches.items()},
+             launches_entry=entry_launches[name],
              **kernels[name])
         for name in ("landmark_top2", "hamming_top2")]}))
     print(smi)

@@ -482,3 +482,31 @@ def test_multiseq_vo_step_launches_one_kernel_per_lockstep_frame(dev):
             assert np.isfinite(est).all()
             assert ate.align_svd(est, w.poses[:frames, :3])[2] < 0.15
         assert int(vo.lm.valid[s].sum()) > 50
+
+
+def test_entry_points_on_the_card_launch_the_landmark_kernel(dev):
+    """``entry()``'s step on the card equals the CPU's on the same inputs
+    and draws (one landmark top-2 launch per call), and the dryrun runs on
+    a mesh that lists the card twice (its batched tracking one launch)."""
+    from vslam_tpu_torch import entry
+    from vslam_tpu_torch.solvers import pnp
+
+    fn, args = entry.entry(dev)
+    fn_c, args_c = entry.entry("cpu")
+    res_c = fn_c(*args_c)
+    idx = pnp.sample_minimal(res_c.match_lm >= 0, 64, 6,
+                             torch.Generator().manual_seed(0))
+    res_c = fn_c(*args_c, sample_idx=idx)
+    before = cuda_hamming.LAUNCHES["landmark_top2"]
+    res = fn(*args, sample_idx=idx.to(dev))
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == before + 1
+    for name in ("match_lm", "had_candidate", "num_matches"):
+        assert torch.equal(getattr(res, name).cpu(), getattr(res_c, name))
+    assert torch.equal(res.feats.bits.cpu(), res_c.feats.bits)
+    torch.testing.assert_close(res.T_w_c.cpu(), res_c.T_w_c, rtol=0,
+                               atol=1e-4)
+    before = cuda_hamming.LAUNCHES["landmark_top2"]
+    r = entry.dryrun_multichip(2, dev)
+    assert cuda_hamming.LAUNCHES["landmark_top2"] == before + 1
+    assert bool(torch.isfinite(r["poses"]).all())
+    assert float(r["ba"]["final_cost"]) <= float(r["ba"]["initial_cost"])

@@ -355,6 +355,60 @@ def test_batched_track_frame_over_a_mesh(lockstep, worlds):
                                            st.vel, st.intr0, sample_idx=idx)
 
 
+def test_batched_track_frame_per_sequence_intrinsics_match_jax(lockstep,
+                                                               worlds):
+    """The constructors of both packages, each over a 3-device mesh, with
+    one intrinsics row per sequence ([S, 8], three different cameras) and
+    the JAX draws: features and matches equal, poses within 1e-4, inlier
+    counts within 5."""
+    from vslam_tpu.parallel import multiseq as jmultiseq
+    from vslam_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    if len(jax.devices()) < S:
+        pytest.skip(f"the JAX side needs {S} CPU devices")
+    _, records = lockstep
+    cfg = SlamConfig(**CFG)
+    kw = step_kwargs(cfg, worlds[0].calib)
+    before, st, img = batched_inputs(records, worlds, 6)
+    # the world's camera, and two whose focal lengths and centres differ
+    intr = np.tile(np.asarray(before.intr0, np.float32), (S, 1))
+    intr[:, :2] *= np.asarray([0.98, 1.0, 1.02], np.float32)[:, None]
+    intr[:, 2] += np.asarray([-2.0, 0.0, 3.0], np.float32)
+    keys = jax_keys(before)
+    res_j = jmultiseq.batched_track_frame(jax_make_mesh(S), **kw)(
+        keys, jnp.asarray(img.numpy()),
+        jax.tree.map(jnp.asarray, before.lm), jnp.asarray(before.pose),
+        jnp.asarray(before.last_pose), jnp.asarray(before.vel),
+        jnp.asarray(intr))
+    idx = np.stack([np.asarray(jpnp._sample_minimal(
+        keys[s], res_j.match_lm[s] >= 0, cfg.ransac_hypotheses, 6))
+        for s in range(S)])
+    fn = multiseq.batched_track_frame(make_mesh(S, devices=["cpu"] * S),
+                                      **kw)
+    res = fn(img, st.lm, st.pose, st.last_pose, st.vel, torch.as_tensor(intr),
+             sample_idx=torch.as_tensor(idx))
+    assert_same(res.feats, res_j.feats)
+    np.testing.assert_array_equal(res.match_lm.numpy(),
+                                  np.asarray(res_j.match_lm))
+    np.testing.assert_array_equal(res.had_candidate.numpy(),
+                                  np.asarray(res_j.had_candidate))
+    np.testing.assert_array_equal(res.num_matches.numpy(),
+                                  np.asarray(res_j.num_matches))
+    np.testing.assert_array_equal(res.pnp_ok.numpy(),
+                                  np.asarray(res_j.pnp_ok))
+    np.testing.assert_allclose(res.T_w_c.numpy(), np.asarray(res_j.T_w_c),
+                               atol=1e-4)
+    assert np.abs(res.num_inliers.numpy()
+                  - np.asarray(res_j.num_inliers)).max() <= 5
+    assert int(res.num_matches.min()) > 30
+    # against the shared row: the world's camera gives the same pose, the
+    # other two cameras other poses
+    shared = fn(img, st.lm, st.pose, st.last_pose, st.vel, st.intr0,
+                sample_idx=torch.as_tensor(idx))
+    moved = (shared.T_w_c - res.T_w_c).abs().amax(-1)
+    assert float(moved[1]) == 0.0 and bool((moved[[0, 2]] > 1e-3).all())
+
+
 def test_interop_roundtrip_multiseq_state(lockstep):
     """A JAX ``MultiSeqState`` as numpy arrays becomes the port's (``key``
     dropped, cursors and frame as host integers) and comes back equal,

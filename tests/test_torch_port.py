@@ -102,6 +102,7 @@ def test_port_imports_no_jax():
                      "vslam_tpu_torch.tools.bench_vocab",
                      "vslam_tpu_torch.tools.ablation_reloc",
                      "vslam_tpu_torch.bench",
+                     "vslam_tpu_torch.entry",
                      "vslam_tpu_torch.viz.overlays",
                      "vslam_tpu_torch.viz.html_viewer",
                      "vslam_tpu_torch.viz.plot_map",

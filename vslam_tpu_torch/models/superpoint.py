@@ -23,6 +23,7 @@ the same bias corrections).
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -30,6 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 CELL = 8
+
+
+def _call(conv: nn.Conv2d, x):
+    return conv(x)
 
 
 def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
@@ -45,13 +50,15 @@ class ConvBlock(nn.Module):
         self.conv0 = _conv(cin, features, 3)
         self.conv1 = _conv(features, features, 3)
 
-    def forward(self, x):
-        return F.relu(self.conv1(F.relu(self.conv0(x))))
+    def forward(self, x, conv=_call):
+        return F.relu(conv(self.conv1, F.relu(conv(self.conv0, x))))
 
 
 class SuperPointTPU(nn.Module):
     """Encoder + detector/descriptor heads. Input [B, H, W, 1] in [0, 1];
-    returns (logits [B, H/8, W/8, 65], desc [B, H/8, W/8, dim])."""
+    returns (logits [B, H/8, W/8, 65], desc [B, H/8, W/8, dim]).
+    ``forward(x, conv)`` applies every convolution as ``conv(module, x)``
+    (``entry.split_forward`` splits some over devices)."""
 
     def __init__(self, dim: int = 256, width: int = 64,
                  generator: torch.Generator = None):
@@ -88,15 +95,15 @@ class SuperPointTPU(nn.Module):
             out += [block.conv0, block.conv1]
         return out + [self.det0, self.det1, self.desc0, self.desc1]
 
-    def forward(self, x):
+    def forward(self, x, conv=_call):
         x = x.permute(0, 3, 1, 2)                       # NHWC -> NCHW
         for i, block in enumerate(self.blocks):
-            x = block(x)
+            x = block(x, conv)
             if i < 3:
                 x = F.max_pool2d(x, 2, 2)
         feat = x                                        # [B, 2w, H/8, W/8]
-        logits = self.det1(F.relu(self.det0(feat)))
-        desc = self.desc1(F.relu(self.desc0(feat)))
+        logits = conv(self.det1, F.relu(conv(self.det0, feat)))
+        desc = conv(self.desc1, F.relu(conv(self.desc0, feat)))
         desc = desc / (torch.linalg.vector_norm(desc, dim=1, keepdim=True)
                        + 1e-8)
         return logits.permute(0, 2, 3, 1), desc.permute(0, 2, 3, 1)
@@ -182,7 +189,8 @@ def descriptor_loss(desc_a, desc_b, uv_a, uv_b, valid, margin_pos=1.0,
 
 
 def loss_fn(model: SuperPointTPU, batch):
-    """Detector loss of both views plus the descriptor loss."""
+    """Detector loss of both views plus the descriptor loss; ``model`` is
+    the network or any images -> (logits, desc) function."""
     la, da = model(batch["img_a"])
     lb, db = model(batch["img_b"])
     l_det = detector_loss(la, batch["heat_a"]) + detector_loss(
@@ -192,9 +200,11 @@ def loss_fn(model: SuperPointTPU, batch):
     return l_det + l_desc
 
 
-def make_train_step(model: SuperPointTPU, optimizer):
-    """Returns train_step(batch) -> loss (before the step): one loss,
-    ``backward`` and ``optimizer.step()`` on ``model``'s parameters."""
+def make_train_step(model: Callable, optimizer):
+    """Returns train_step(batch) -> loss (before the step): one
+    ``loss_fn(model, batch)``, ``backward`` and ``optimizer.step()``.
+    ``model`` is the network or any images -> (logits, desc) function over
+    the optimizer's parameters (``entry.split_forward``)."""
 
     def train_step(batch):
         optimizer.zero_grad(set_to_none=True)

@@ -38,12 +38,12 @@ def batched_track_frame(mesh: Mesh, cam_name: str, **static_kwargs):
     """Build the multi-sequence tracking step over ``mesh``.
 
     Returns fn(imgs [S,H,W], lm (LandmarkState leading with S), predicted
-    [S,7], gate [S,7], vel [S,7], intr0 [8], generator=None,
-    sample_idx=None) -> TrackResult leading with S, on the mesh's first
-    device. S must be a multiple of the 'data' axis; sequence block i goes
-    to device i. ``generator`` must live on the device that uses it, so a
-    mesh of several different devices takes the RANSAC draws as
-    ``sample_idx`` [S, H, 6].
+    [S,7], gate [S,7], vel [S,7], intr0 [S,8] (one row per sequence) or
+    [8] (shared), generator=None, sample_idx=None) -> TrackResult leading
+    with S, on the mesh's first device. S must be a multiple of the 'data'
+    axis; sequence block i goes to device i. ``generator`` must live on
+    the device that uses it, so a mesh of several different devices takes
+    the RANSAC draws as ``sample_idx`` [S, H, 6].
     """
     step = functools.partial(tracking.track_frame, cam_name=cam_name,
                              **static_kwargs)
@@ -76,7 +76,9 @@ def batched_track_frame(mesh: Mesh, cam_name: str, **static_kwargs):
                 return x[lo:hi].to(d)
 
             res = step(put(imgs), map_tensors(lm, put), put(predicted),
-                       put(gate), put(vel), intr0.to(d), generator=generator,
+                       put(gate), put(vel),
+                       (intr0 if intr0.dim() == 1 else intr0[lo:hi]).to(d),
+                       generator=generator,
                        sample_idx=None if sample_idx is None
                        else put(sample_idx))
             parts.append(map_tensors(res, lambda x: x.to(home)))

@@ -9,16 +9,17 @@ P slots (newest first), so the matcher sees fixed [N] x [P, B] shapes.
 
 Over a sequence axis. ``track_frame`` also takes S sequences at once, the
 lockstep frame of ``parallel/multiseq_runner.py``: images [S, H, W], a
-``LandmarkState`` whose fields lead with S, poses and velocities [S, 7]
-(the intrinsics are shared). Every stage then runs once over all S: the
-frontend and the compaction carry the axis through, the bank is gathered
-per sequence, the guided matching is one launch of the landmark top-2
-kernel with the sequence axis on its grid, and the RANSAC PnP is
-``torch.func.vmap`` of the single-problem solver. Row s of every result is
-what the call on sequence s alone gives, given the same RANSAC draws
-(``sample_idx`` [S, H, 6]); the floating-point sums of the PnP refinement
-are taken by batched products, so the pose agrees to rounding, not bit for
-bit.
+``LandmarkState`` whose fields lead with S, poses and velocities [S, 7],
+and intrinsics [S, 8] (one row per sequence, as the reference's vmapped
+step takes them) or [8] (shared by all). Every stage then runs once over
+all S: the frontend and the compaction carry the axis through, the bank
+is gathered per sequence, the guided matching is one launch of the
+landmark top-2 kernel with the sequence axis on its grid, and the RANSAC
+PnP is ``torch.func.vmap`` of the single-problem solver. Row s of every
+result is what the call on sequence s alone gives, given the same RANSAC
+draws (``sample_idx`` [S, H, 6]); the floating-point sums of the PnP
+refinement are taken by batched products, so the pose agrees to
+rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
     learned frontend's hook). With a leading sequence axis on the image,
     the landmark state, the poses and the velocity (and on ``sample_idx``)
     S sequences are tracked at once (module docstring) and every field of
-    the result leads with S."""
+    the result leads with S; ``intr0`` is then [S, 8] or a shared [8]."""
     if feats is None:
         feats = extract_features(img_l, num_features=num_features,
                                  quality_level=quality_level,
@@ -87,8 +88,11 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
                                  rotate_features=rotate_features,
                                  num_octaves=num_octaves)
 
+    # per-sequence intrinsics [S, 8] broadcast against [S, L | N] points
+    intr = intr0 if intr0.dim() == 1 else intr0.unsqueeze(-2)
+
     # ---- project + compact in-view landmarks (newest-first) ----
-    proj, in_view = project_landmarks(lm, predicted_pose, cam_name, intr0,
+    proj, in_view = project_landmarks(lm, predicted_pose, cam_name, intr,
                                       width, height, z_threshold)
     sel, sel_valid = compact_indices(in_view, inview_cap, newest_first=True)
     sel = torch.clamp(sel, 0, lm.pos.shape[-2] - 1)
@@ -106,7 +110,7 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
     num_matches = m_ok.sum(dim=-1)
 
     # ---- PnP localization ----
-    bearings = cam_models.unproject(cam_name, intr0, feats.corners)
+    bearings = cam_models.unproject(cam_name, intr, feats.corners)
     points = take_rows(take_rows(lm.pos, sel), local)
     T_ransac, inlier, num_inl, pnp_valid = pnp.ransac_pnp(
         points, bearings, m_ok, pnp_threshold,
