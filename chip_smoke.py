@@ -50,12 +50,18 @@ skipped.
 7. Full SLAM: ``bench.full_slam_world``'s port,
    ``vslam_tpu_torch.tools.bench_worlds.full_slam_world`` (752x480 pano
    revisit world, 288 frames, 300 features, a vocabulary trained with the
-   port's ``train`` on its own features), ``poll_every=32``, through the
-   benchmark program's ``bench_full_slam``: one timed run of the
+   port's ``train`` on its own features), ``poll_every=32`` and ``chunk=8``
+   (the logs read at every 8-frame boundary, the JAX package's schedule),
+   through the benchmark program's ``bench_full_slam``: one timed run of the
    full-SLAM arm and of the VO control, 32 untimed frames and 256 timed
    each (the sub-bench's untimed warm-up run is left out: phases 4-6 have
    warmed the kernels and solvers up), its lines on the emitter phase 14
-   goes on with. Prints frames per second, loops, GBA merges,
+   goes on with. Prints each relocalization attempt (frame, frames lost,
+   gate, candidates, best inliers, best gate error, accepted, the coasted
+   pose's error against ground truth at the attempt and at the last
+   tracked frame), acceptance by frames lost and the loss episodes
+   (onset, length, how each ended) on a line of their own; then frames
+   per second, loops, GBA merges,
    relocalizations, dropped window observations, the loop counters and
    timings, keyframe ATE of both arms, peak memory and each arm's
    launches in its timed frames, beside the JAX package's TPU figures
@@ -70,7 +76,9 @@ skipped.
    calibration, the vocabulary as a DBoW2 text file and phase 7's
    configuration as JSON; ``cli.main`` three times (the faithful
    ``SlamSystem`` driver, the same with ``--no-loop --no-reloc`` as its
-   control, ``--driver streaming``). Checks the return codes, that each
+   control, ``--driver streaming``, whose ``StreamingSLAM`` reads its
+   logs at ``chunk=4`` as the JAX command line's). Checks the return
+   codes, that each
    map JSON loads and keeps the ``value0..value4`` layout, a finite ATE
    within the orbit's diameter (the faithful run against its control is
    printed: on this world the seed decides which of the two breaks), the
@@ -167,9 +175,8 @@ skipped.
    the 4096-pair problem), ``bench_vocab`` at depth 5 (111,111 nodes; the
    tool's default of 6 cut to fit the script's time) and
    ``ablation_reloc --variants full`` on phase 7's world (loop closure,
-   global BA and relocalization at ``poll_every=16``), in deterministic
-   mode. Each record
-   is printed. Checks: every time finite and positive and no stage's
+   global BA and relocalization at ``poll_every=16``, ``chunk=8``), in
+   deterministic mode. Each record is printed. Checks: every time finite and positive and no stage's
    device ms above its wall ms, the keyframe branch's cost positive, each
    global BA's final cost under half its initial (the JAX slow test's
    bar), the card's descent words equal to the CPU's for the same 1500
@@ -224,7 +231,8 @@ the phases, the faithful driver and its control on phase 7's world over
 those RANSAC seeds (``sweep_faithful_seeds``): the measurement behind
 phase 8's bar. ``--learned-seeds 0 1 2 ...`` runs phase 11's two
 learned-VO runs over initialization seeds (``sweep_learned_seeds``): the
-measurement behind its pinned seed.
+measurement behind its pinned seed. ``--full-slam`` runs phase 7 alone
+(cold: nothing warmed up before it) and prints its lines.
 
 Phases 6 to 8 (and phase 11's training and learned VO, phase 13's
 ablation) run with PyTorch's deterministic algorithms (see
@@ -988,6 +996,7 @@ def phase_full_slam(dev, em, n_frames=288):
     from unittest import mock
 
     from vslam_tpu_torch import bench
+    from vslam_tpu_torch.eval import recovery
     from vslam_tpu_torch.tools import bench_worlds
 
     t0 = time.perf_counter()
@@ -1032,6 +1041,19 @@ def phase_full_slam(dev, em, n_frames=288):
             launches=drv.run_launches[1],
             trajectory_finite=bool(np.isfinite(res["trajectory"]).all()))
         if full:
+            # each relocalization attempt and each loss episode, on a line
+            # before the arm's
+            attempts = recovery.attempt_records(
+                drv.reloc_diags, res["trajectory"], seq.poses)
+            print("full SLAM, relocalization: " + json.dumps(dict(
+                attempts=[{k: a[k] for k in (
+                    "frame", "frames_lost", "gate", "candidates", "best_n",
+                    "best_gate_err", "ok", "coasted_err_m",
+                    "last_tracked_err_m")} for a in attempts],
+                accepted_by_frames_lost=recovery.acceptance_by_bin(attempts),
+                loss_episodes=recovery.loss_episodes(
+                    res["tracked_ok"], res["is_keyframe"],
+                    drv.reloc_events))), flush=True)
             r.update(
                 loops_closed=len(drv.loop_edges), loops=drv.loop_edges,
                 gba_merges=drv.gba_merges, gba=drv.gba_stats,
@@ -2592,6 +2614,10 @@ def main():
         return
     if sys.argv[1:2] == ["--learned-seeds"]:
         sweep_learned_seeds(dev, [int(x) for x in sys.argv[2:]] or [0], smi)
+        return
+    if sys.argv[1:2] == ["--full-slam"]:
+        with deterministic():
+            phase_full_slam(dev, kept_emitter())
         return
 
     t_start = time.perf_counter()

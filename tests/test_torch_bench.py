@@ -506,7 +506,7 @@ def test_full_slam_runs_are_direct_runs_and_reduce_as_the_jax_bench(runs):
     assert line["full_slam_traj_len_m"] == round(traj_len, 1)
     assert line["full_slam_drift_pct"] == round(
         100.0 * line["full_slam_ate_m"] / traj_len, 2)
-    assert "poll_every=32" in detail["full_slam_config"]
+    assert "poll_every=32, chunk=8" in detail["full_slam_config"]
 
 
 def test_full_slam_without_its_warm_up_run_times_the_first_run(runs):
@@ -528,7 +528,7 @@ def assert_direct_slam_run(rec, seed, pano, voc):
     cfg = slam_make_cfg(True)
     cfg.seed = seed
     direct = StreamingSLAM(pano.calib, cfg, voc, max_frames=32,
-                           poll_every=32, device="cpu")
+                           poll_every=32, chunk=8, device="cpu")
     direct.run(pano.images[:SLAM_WARM])
     direct.poll()
     direct.run(pano.images[SLAM_WARM:])

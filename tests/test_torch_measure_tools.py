@@ -380,7 +380,8 @@ def test_tools_default_to_the_card(tool):
                                   "ablation_reloc"])
 def test_flags_are_the_jax_tool_s(name):
     """Each port keeps the JAX tool's flags and defaults and adds
-    --device; the TPU-only flags (``--chunk``) are dropped."""
+    --device (``ablation_reloc``'s ``--chunk`` included: the port's
+    ``StreamingSLAM`` reads its logs on the same chunk boundaries)."""
     def flags(path):
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -398,11 +399,10 @@ def test_flags_are_the_jax_tool_s(name):
     want = flags(os.path.join(REPO, "tools", f"{name}.py"))
     got = flags(os.path.join(REPO, "vslam_tpu_torch", "tools",
                              f"{name}.py"))
-    dropped = {"--chunk"} if name == "ablation_reloc" else set()
-    assert set(got) == (set(want) - dropped) | {"--device"}
+    assert set(got) == set(want) | {"--device"}
     assert got["--device"] == "cuda"
     for flag, default in want.items():
-        if flag in dropped or flag == "--out":
+        if flag == "--out":
             continue
         assert got[flag] == default, flag
 

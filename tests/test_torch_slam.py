@@ -11,11 +11,12 @@
   keyframe descriptors, a detector database of every keyframe, and
   keyframe ATE within the VO bounds of tests/test_torch_streaming.py
   (< 0.08 m, within 2x of the port's VO driver on the same frames);
-- lost frames (noise images, or a tracker turned off its pose): the loss
-  log is read after every frame, the poll that sees two lost frames
-  attempts relocalization and enters lost mode, which polls after every
-  frame until tracking is back; relocalization recovers the turned
-  tracker against the map.
+- lost frames (noise images, or a tracker turned off its pose): the logs
+  are read on the frames where the JAX package's driver reads them on the
+  same loss log (tests/test_torch_reloc_schedule.py holds the schedule
+  itself), the poll that sees two lost frames attempts relocalization on
+  the JAX driver's frame with its frames_lost and gate; relocalization
+  recovers the turned tracker against the map.
 """
 
 import jax.numpy as jnp
@@ -164,17 +165,21 @@ def test_slam_run_within_vo_bounds(slam_run, world):
 
 
 @pytest.mark.parametrize("loss", ["noise", "yaw"])
-def test_lost_mode_and_relocalization(world, loss):
-    """Tracking lost from frame 12: the loss log is read after every frame,
-    so the poll after frame 13 (the newest two frames lost) attempts
-    relocalization and enters lost mode (a poll after every frame) until
-    tracking is back.
+def test_lost_mode_and_relocalization(world, loss, monkeypatch):
+    """Tracking lost from frame 12, with ``poll_every=4`` and the default
+    ``chunk=1``: the driver reads its logs where the JAX package's driver
+    reads them on the same loss log (every 4 frames of a ``run`` call and
+    at its end: no lost mode at chunk 1), so the first poll that sees the
+    newest two frames lost comes after frame 15, and attempts
+    relocalization with 4 frames lost.
 
     ``noise``: frames 12-15 are noise images; the attempt has nothing to
     recognize and fails, and tracking recovers on its own at frame 16.
     ``yaw``: the tracker pose is turned 0.3 rad after frame 11, so the real
     frames that follow fail to track; relocalization against the map
-    recovers the pose from frame 13's features, and frame 14 tracks."""
+    recovers the pose from frame 15's features, and frame 16 tracks."""
+    from test_torch_reloc_schedule import jax_schedule
+
     seq, voc = world
     frames = list(seq.images)
     if loss == "noise":
@@ -185,8 +190,9 @@ def test_lost_mode_and_relocalization(world, loss):
     slam = StreamingSLAM(seq.calib, slam_config(), voc, max_frames=32,
                          poll_every=4, device="cpu")
     polls = []
-    poll = slam.poll
-    slam.poll = lambda: (polls.append(slam.state.frame), poll())[1]
+    poll_at = slam._poll_at
+    slam._poll_at = lambda n, stale=False: (polls.append(n),
+                                            poll_at(n, stale))[1]
     slam.run(frames[:12])
     if loss == "yaw":
         turn = lie.se3_exp(torch.tensor([0, 0, 0, 0, 0.3, 0.0]))
@@ -195,19 +201,24 @@ def test_lost_mode_and_relocalization(world, loss):
                                 last_pose=lie.se3_mul(st.last_pose, turn))
     slam.run(frames[12:])
     res = slam.results()
-    back = 16 if loss == "noise" else 14
-    assert not res["tracked_ok"][12:back].any()
-    assert res["tracked_ok"][back:].all()
-    assert not res["is_keyframe"][12:back].any()
-    # scheduled polls every 4 frames (and at the end of each run call), the
-    # poll that sees the loss at frame 14, lost-mode polls until tracking
-    # is back
-    lost_mode = [15, 16, 17] if loss == "noise" else [15, 16]
-    assert polls == [4, 8, 12, 12, 14, *lost_mode, 20, 24, 24]
-    assert [f for f, _ in slam.reloc_events] == [14]
+    assert not res["tracked_ok"][12:16].any()
+    assert res["tracked_ok"][16:].all()
+    assert not res["is_keyframe"][12:16].any()
+    # the JAX driver's schedule over this run's loss log, with this run's
+    # attempt outcomes
+    reads_j, att_j = jax_schedule(
+        res["tracked_ok"], 1,
+        {i for i, (_, ok) in enumerate(slam.reloc_events) if ok},
+        monkeypatch, poll_every=4, calls=(("run", 12), ("run", 12)),
+        cfg=slam_config())
+    assert polls == [n for n, _ in reads_j] == [4, 8, 12, 12, 16, 20, 24,
+                                                24]
+    assert [(f, d["frames_lost"], d["gate"], ok) for (f, ok), d in zip(
+        slam.reloc_events, slam.reloc_diags)] == att_j
     (_, ok), = slam.reloc_events
     diag = slam.reloc_diags[0]
-    assert diag["frames_lost"] == 2 and diag["candidates"] > 0
+    assert diag["frame"] == 16 and diag["frames_lost"] == 4
+    assert diag["candidates"] > 0
     if loss == "noise":
         assert not ok and diag["best_n"] < 10
     else:

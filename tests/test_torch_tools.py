@@ -12,10 +12,15 @@ photometric tests need, and the native I/O binding, through the port.
   and matcher;
 - ``io.native``: the decoder and the vocabulary reader give what the numpy
   paths give, and ``euroc.load_image`` / ``load_dbow2_text`` use them;
-- ``tools.view_dataset`` writes the overlays of a dataset.
+- ``tools.view_dataset`` writes the overlays of a dataset;
+- ``eval.recovery``'s loss episodes and attempt records on hand-made
+  logs, and ``tools/slam_seed_sweep.py --summarize`` on hand-made lines:
+  acceptance by frames-lost bin and the Fisher tests between packages.
 """
 
 import dataclasses
+import importlib.util
+import json
 import os
 
 import jax
@@ -29,6 +34,7 @@ from vslam_tpu.geometry import cameras as jcam
 from vslam_tpu.geometry import lie as jlie
 from vslam_tpu.tools import calibrate as jcal
 from vslam_tpu_torch import synthetic
+from vslam_tpu_torch.eval import recovery
 from vslam_tpu_torch.frontend.features import extract_features
 from vslam_tpu_torch.io import euroc, native
 from vslam_tpu_torch.loop import vocabulary as vocab_mod
@@ -381,3 +387,126 @@ def test_view_dataset_writes_overlays(tmp_path):
     assert img.shape == (240, 640, 3)
     assert (img != img[..., :1]).any()      # green crosses drawn
     assert view_dataset.main([]) == 1
+
+
+# ---------------------------------------------------------------------------
+# the relocalization census and the seed sweep's summary
+# ---------------------------------------------------------------------------
+
+def test_loss_episodes_and_how_they_end():
+    ok = np.array([0, 1, 1, 0, 0, 1, 0, 0, 0, 1, 1, 0, 0, 1, 0, 0], bool)
+    kf = np.zeros(len(ok), bool)
+    kf[[0, 1, 8]] = True     # frame 8: a keyframe on a lost frame
+    events = [(4, False), (5, True), (12, False)]
+    assert recovery.loss_episodes(ok, kf, events) == [
+        (3, 2, "relocalized"),   # accepted after frame 4, frame 5 tracks
+        (6, 3, "rebootstrap"),
+        (11, 2, "self"),         # the attempt after frame 11 failed
+        (14, 2, "open")]
+    # an accepted attempt after a re-bootstrap keyframe does not end it
+    kf[3] = True
+    assert recovery.loss_episodes(ok, kf, events)[0] == (3, 2,
+                                                         "rebootstrap")
+
+
+def test_attempt_records_and_bins():
+    gt = np.zeros((20, 7))
+    gt[:, 6] = 1.0
+    gt[:, 0] = np.arange(20) * 0.1
+    traj = gt.copy()
+    traj[9, 1] = 0.5                       # the coasted pose, 0.5 m off
+    half = np.sin(np.radians(10.0) / 2)    # and 10 degrees about z
+    traj[9, 5:7] = half, np.cos(np.radians(10.0) / 2)
+    diags = [dict(frame=10, frames_lost=3, gate=1.5, candidates=2, best_n=7,
+                  best_gate_err=None, applied_frame=9),
+             dict(frame=16, frames_lost=12, gate=6.0, candidates=1,
+                  best_n=40, best_gate_err=0.8, T_wc=[0.0] * 7,
+                  applied_frame=15)]
+    recs = recovery.attempt_records(diags, traj, gt, harvests=[[12, 4],
+                                                               [33]])
+    assert [r["bin"] for r in recs] == ["2-3", ">=12"]
+    assert [r["ok"] for r in recs] == [False, True]
+    assert recs[0]["harvest"] == [12, 4] and recs[1]["harvest"] == [33]
+    assert recs[0]["coasted_err_m"] == 0.5
+    assert recs[0]["coasted_err_deg"] == pytest.approx(10.0, abs=1e-3)
+    assert recs[0]["last_tracked_err_m"] == 0.0     # frame 6
+    assert recovery.acceptance_by_bin(recs) == {
+        "2-3": [0, 1], "4-7": [0, 0], "8-11": [0, 0], ">=12": [1, 1]}
+    assert [recovery.frames_lost_bin(n) for n in (2, 3, 4, 7, 8, 11, 12,
+                                                  40)] == [
+        "2-3", "2-3", "4-7", "4-7", "8-11", "8-11", ">=12", ">=12"]
+
+
+def sweep_module():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "slam_seed_sweep.py")
+    spec = importlib.util.spec_from_file_location("slam_seed_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sweep_line(backend, schedule, seed, loops, attempts, episodes):
+    """A ``--scenario bench`` line; attempts: [(frames_lost, ok)]; a failed
+    one had no pose, except at 12 or more frames lost: over the gate."""
+    recs = [dict(frame=40 + 8 * i, frames_lost=n,
+                 bin=recovery.frames_lost_bin(n), gate=0.5 * min(n, 12),
+                 candidates=1, harvest=[20],
+                 best_n=30 if ok or n >= 12 else 4,
+                 best_gate_err=0.1 if ok else 7.0 if n >= 12 else None,
+                 ok=ok)
+            for i, (n, ok) in enumerate(attempts)]
+    return dict(scenario="bench", backend=backend, schedule=schedule,
+                seed=seed, loop_frames=loops,
+                reloc_attempts=len(attempts),
+                reloc_ok=sum(ok for _, ok in attempts), attempts=recs,
+                loss_episodes=episodes)
+
+
+def test_seed_sweep_summary_bins_and_fisher(tmp_path, capsys):
+    from scipy import stats
+
+    lines = [
+        sweep_line("jax", "chunk8_stride1", 0, [[180, 40]],
+                   [(2, False), (5, True), (9, True), (14, True)],
+                   [[60, 14, "relocalized"], [120, 3, "self"]]),
+        sweep_line("jax", "chunk8_stride1", 1, [],
+                   [(3, False), (12, True)],
+                   [[70, 20, "relocalized"]]),
+        sweep_line("torch", "chunk8", 0, [[230, 50]],
+                   [(2, False), (2, False), (3, False), (6, True)],
+                   [[60, 31, "rebootstrap"]]),
+        sweep_line("torch", "chunk8", 1, [[190, 40]], [(13, False)],
+                   [[80, 40, "open"]]),
+    ]
+    path = tmp_path / "sweep.jsonl"
+    path.write_text("".join(json.dumps(d) + "\n" for d in lines)
+                    + "not a record\n")
+    out = sweep_module().summarize([str(path)])
+    jax_rec, port_rec, tests = out
+    assert (jax_rec["backend"], port_rec["backend"]) == ("jax", "torch")
+    assert jax_rec["accepted_by_frames_lost"] == {
+        "2-3": [0, 2], "4-7": [1, 1], "8-11": [1, 1], ">=12": [2, 2]}
+    assert port_rec["accepted_by_frames_lost"] == {
+        "2-3": [0, 3], "4-7": [1, 1], "8-11": [0, 0], ">=12": [0, 1]}
+    assert port_rec["reloc_diagnosed"] == dict(
+        attempts=5, no_pose=3, over_gate=1, frames_lost=[2, 2, 3, 6, 13])
+    assert (jax_rec["reloc_accepted"], jax_rec["reloc_attempts"]) == (4, 6)
+    assert (port_rec["reloc_accepted"], port_rec["reloc_attempts"]) == (1,
+                                                                        5)
+    assert jax_rec["loss_episodes"] == dict(
+        per_run=1.5, median_length=14.0,
+        ended=dict(relocalized=2, self=1, rebootstrap=0, open=0))
+    assert port_rec["loss_episodes"]["ended"] == dict(
+        relocalized=0, self=0, rebootstrap=1, open=1)
+    assert (jax_rec["closed"], port_rec["closed"]) == (1, 2)
+    assert port_rec["closed_in_first_revisit"] == 1
+    assert tests["port_schedule"] == "chunk8"
+    assert tests["jax_schedule"] == "chunk8_stride1"
+    assert tests["fisher_reloc_accepted_p"] == pytest.approx(
+        stats.fisher_exact([[4, 2], [1, 4]])[1])
+    assert tests["fisher_closed_p"] == pytest.approx(
+        stats.fisher_exact([[1, 1], [2, 0]])[1])
+    assert tests["fisher_first_revisit_p"] == 1.0
+    printed = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert printed == json.loads(json.dumps(out))

@@ -31,23 +31,32 @@ lost frames) and a summary of the SLAM / control ratios per seed.
 
 ``--scenario bench`` runs the bench's full SLAM (``bench.bench_full_slam``'s
 run: ``StreamingSLAM`` on ``full_slam_world``, 288 frames at 752x480,
-``poll_every=32`` (the JAX package's with ``chunk=8``), the first 32
-frames then a poll, then the rest and a last merge of a pending global
-BA). One JSON line per seed: loops with
-their frames, GBA merges, relocalization attempts and successes (with
-each attempt's diagnostics: candidates, best inliers, motion gate and the
-best gate error), lost frames, keyframe ATE, the loop detector's counters and the rejected
-candidates (current and candidate keyframe's frames, inliers, visible; a
-negative visible count is an identity-gain rejection). ``--loop-trace
-FIRST LAST`` adds the loop detector's queries in those frames
+``poll_every=32`` and ``chunk=8`` in both packages, the first 32 frames
+then a poll, then the rest and a last merge of a pending global BA). The
+JAX driver's lagged poll backs its stride off (up to ``poll_every //
+chunk`` boundaries) while its fetches wait long, which on a CPU they
+always do; ``--jax-stride pinned`` (the default) holds it at 1 by setting
+the driver's ``_stride_limit``, the schedule the port runs, and
+``--jax-stride adaptive`` leaves it free. One JSON line per seed: loops
+with their frames, GBA merges, relocalization attempts and successes,
+each attempt's record (``eval.recovery.attempt_records``: frames lost and
+their bin, motion gate, candidates, correspondences harvested per
+candidate, best inliers, best gate error, the coasted pose's error
+against ground truth at the attempt and at the last tracked frame), the
+loss episodes (``eval.recovery.loss_episodes``: onset, length, and how
+each ended), the frame counts at which the driver read its logs (lagged
+reads apart; the JAX driver's consume strides too), lost frames,
+keyframe ATE, the loop detector's counters and the rejected candidates
+(current and candidate keyframe's frames, inliers, visible; a negative
+visible count is an identity-gain rejection). ``--loop-trace FIRST
+LAST`` adds the loop detector's queries in those frames
 (``trace_loop_queries``): a loop is accepted only where four keyframe
 queries in a row have candidates whose covisibility groups overlap.
 ``--replay-reloc`` adds every relocalization attempt solved by both
 packages on its state with the same draws (``replay_relocalization``;
-imports both packages). ``--schedule lagged`` runs the port on
-``bench.py``'s lagged poll schedule (``lagged_slam``). ``--summarize FILE
-...`` reads such lines back and prints the rates of each package and the
-tests between them (``summarize``).
+imports both packages). ``--summarize FILE ...`` reads such lines back
+and prints the rates of each package and schedule and the tests between
+them (``summarize``).
 
 ``--scenario camera`` runs ``StreamingVO`` at the bench's VO configuration
 on ``chip_smoke.py`` phase 12's world (``synthetic.generate(num_frames=128,
@@ -241,93 +250,16 @@ def sweep_faithful(args, where):
         within_1_15=int((r <= 1.15).sum()), seeds=len(r))), flush=True)
 
 
-LAG_CHUNK = 8   # bench.bench_full_slam's chunk
+BENCH_CHUNK = 8   # bench.bench_full_slam's chunk, in both packages
 
 
-def lagged_slam():
-    """The port's ``StreamingSLAM`` reading its keyframe events and loss
-    log on ``bench.bench_full_slam``'s schedule instead of its own: at
-    every ``LAG_CHUNK``-frame boundary it takes what the previous boundary
-    had logged, and polls the current state at once where that showed a
-    sustained loss (the JAX driver's lagged poll with its consume stride
-    at 1, ``vslam_tpu/pipeline/streaming.py:846-895``), then at every
-    boundary while lost. The port's own ``run`` reads the loss log after
-    every frame."""
-    from vslam_tpu_torch.pipeline.streaming import StreamingSLAM
-
-    class LaggedSLAM(StreamingSLAM):
-        _lag = None
-
-        def _poll_at(self, n, stale=False):
-            """``poll`` of the first ``n`` frames' events and loss log; a
-            ``stale`` one attempts no recovery but returns True where it
-            would have (the caller then polls the current state)."""
-            ok_log = self.state.log_ok[:n].cpu().numpy()
-            while (self._ev_consumed < len(self.events)
-                   and self.events[self._ev_consumed].frame < n):
-                e = self.events[self._ev_consumed]
-                self._ev_consumed += 1
-                if int(e.slot) >= 0 and int(e.slot) not in self.frame_of_slot:
-                    self._handle_keyframe(e.frame, int(e.slot),
-                                          e.words.cpu().numpy(),
-                                          e.covis.cpu().numpy())
-            R = self.cfg.reloc_lost_frames
-            if not stale and self.cfg.enable_relocalization:
-                self._lost_mode = bool(
-                    n > 0 and not ok_log[max(0, n - R):n].any())
-            if n > 0 and ok_log[n - 1]:
-                self._reloc_failures = 0
-                self._reloc_next_attempt = 0
-            if (self.cfg.enable_relocalization and self.detector.db.bow_of
-                    and n >= R and not ok_log[n - R:n].any()
-                    and n >= self._reloc_next_attempt):
-                if stale:
-                    self._merge_gba_if_ready()
-                    return True
-                oks = np.nonzero(ok_log[:n])[0]
-                self._try_relocalize_stream(
-                    n, int(n - 1 - oks[-1]) if len(oks) else n)
-            self._merge_gba_if_ready()
-            return False
-
-        def _now(self):
-            return min(self.state.frame, self.max_frames)
-
-        def run(self, frames):
-            C = LAG_CHUNK
-            groups = len(frames) // C
-            for g in range(groups):
-                for img_l, img_r in frames[g * C:(g + 1) * C]:
-                    self.process_frame(img_l, img_r)
-                prev, self._lag = self._lag, self._now()
-                if (prev is not None and not self._lost_mode
-                        and self._poll_at(prev, stale=True)):
-                    self._poll_at(self._now())
-                if self._lost_mode:
-                    self._poll_at(self._now())
-            for img_l, img_r in frames[groups * C:]:
-                self.process_frame(img_l, img_r)
-            self.poll()
-            return len(frames)
-
-        def poll(self):
-            if self._lag is not None:
-                self._poll_at(self._lag, stale=True)
-                self._lag = None
-            self._poll_at(self._now())
-
-    return LaggedSLAM
-
-
-def bench_world(backend, device, schedule="frame"):
+def bench_world(backend, device, jax_stride="pinned"):
     """(seq, make(seed), run(driver)) of the bench's full-SLAM run;
-    ``schedule="lagged"`` gives the port ``lagged_slam``'s driver."""
+    ``jax_stride="pinned"`` holds the JAX driver's lagged-poll stride at
+    1."""
     if backend == "torch":
         from vslam_tpu_torch.pipeline.streaming import StreamingSLAM
         from vslam_tpu_torch.tools.bench_worlds import full_slam_world
-
-        if schedule == "lagged":
-            StreamingSLAM = lagged_slam()   # noqa: N806
 
         seq, voc, make_cfg = full_slam_world(288, 300, device)
         frames, kw = seq.images, dict(device=device)
@@ -336,15 +268,16 @@ def bench_world(backend, device, schedule="frame"):
         from vslam_tpu.pipeline.streaming import StreamingSLAM
 
         seq, frames, voc, make_cfg = bench.full_slam_world(288, 300)
-        # bench.bench_full_slam's dispatch: 8 frames a step, the loss log
-        # read at every chunk boundary (the port reacts after every frame)
-        kw = dict(chunk=8)
+        kw = {}
 
     def make(seed):
         cfg = make_cfg(True)
         cfg.seed = seed
-        return StreamingSLAM(seq.calib, cfg, voc, max_frames=296,
-                             poll_every=32, **kw)
+        drv = StreamingSLAM(seq.calib, cfg, voc, max_frames=296,
+                            poll_every=32, chunk=BENCH_CHUNK, **kw)
+        if backend == "jax" and jax_stride == "pinned":
+            drv._stride_limit = 1
+        return drv
 
     def run(drv):
         drv.run(frames[:32])
@@ -357,6 +290,67 @@ def bench_world(backend, device, schedule="frame"):
         drv.results()   # waits for the stream
 
     return seq, make, run
+
+
+def trace_reads(drv, backend):
+    """Wraps ``drv``'s log reads so that the returned dict collects the
+    frame counts read, ``lagged`` (a previous boundary's) and ``fresh``
+    (the current state's), and, in a JAX run, the lagged poll's consume
+    stride after every chunk boundary."""
+    log = dict(lagged=[], fresh=[])
+    if backend == "torch":
+        inner = drv._poll_at
+
+        def poll_at(n, stale=False):
+            log["lagged" if stale else "fresh"].append(int(n))
+            return inner(n, stale)
+
+        drv._poll_at = poll_at
+        return log
+    log["strides"] = []
+    consume, poll_async = drv._consume_poll_blob, drv._poll_async
+
+    def consume_poll_blob(blob, stale=False):
+        log["lagged" if stale else "fresh"].append(int(np.asarray(blob)[0]))
+        return consume(blob, stale)
+
+    def poll_async_(blob, force=False):
+        out = poll_async(blob, force)
+        log["strides"].append(int(drv._consume_stride))
+        return out
+
+    drv._consume_poll_blob, drv._poll_async = consume_poll_blob, poll_async_
+    return log
+
+
+REPLAYING = [False]   # replay_relocalization's solves are in progress
+
+
+def record_harvests(backend):
+    """Wraps the running package's ``relocalize`` and its
+    ``harvest_correspondences`` so that every attempt appends to the
+    returned list the number of correspondences harvested for each
+    candidate it tried (not counting ``replay_relocalization``'s
+    solves)."""
+    if backend == "torch":
+        from vslam_tpu_torch.loop import relocalize as mod
+    else:
+        from vslam_tpu.loop import relocalize as mod
+    log = []
+    inner_reloc, inner_harvest = mod.relocalize, mod.harvest_correspondences
+
+    def relocalize(*a, **kw):
+        log.append([])
+        return inner_reloc(*a, **kw)
+
+    def harvest(*a, **kw):
+        lms, feats = inner_harvest(*a, **kw)
+        if not REPLAYING[0] and log:
+            log[-1].append(len(lms))
+        return lms, feats
+
+    mod.relocalize, mod.harvest_correspondences = relocalize, harvest
+    return log
 
 
 def trace_loop_queries(drv):
@@ -485,17 +479,19 @@ def replay_relocalization(backend):
             dt.db.insert(slot, b)
         calls.clear()
         jpnp.ransac_pnp = recording_pnp
+        REPLAYING[0] = True
         try:
             okj, _, _, diag_j = inner_j(
                 kf_j, lm_j, dj, *[jnp.asarray(a) for a in arrays[:3]], bow,
                 graph, *[jnp.asarray(a) for a in arrays[3:]], cam, mt, thr,
                 key, **kw)
+            okt, _, _, diag_t = inner_t(
+                kf_t, lm_t, dt, *[torch.as_tensor(a) for a in arrays[:3]],
+                bow, graph, *[torch.as_tensor(a) for a in arrays[3:]], cam,
+                mt, thr, sampler=Draws(key), **kw)
         finally:
             jpnp.ransac_pnp = jax_pnp
-        okt, _, _, diag_t = inner_t(
-            kf_t, lm_t, dt, *[torch.as_tensor(a) for a in arrays[:3]], bow,
-            graph, *[torch.as_tensor(a) for a in arrays[3:]], cam, mt, thr,
-            sampler=Draws(key), **kw)
+            REPLAYING[0] = False
         keys = ("candidates", "best_n", "best_gate_err", "gate")
         log.append(dict(
             jax=dict(ok=bool(okj), **{k: diag_j[k] for k in keys}),
@@ -537,26 +533,39 @@ def replay_relocalization(backend):
     return log
 
 
+def schedule_name(backend, jax_stride):
+    if backend == "torch":
+        return f"chunk{BENCH_CHUNK}"
+    return f"chunk{BENCH_CHUNK}_" + ("stride1" if jax_stride == "pinned"
+                                     else "adaptive")
+
+
 def sweep_bench(args, where):
     """The bench's full SLAM over ``args.seeds``; with ``--loop-trace``
     each line also holds ``trace_loop_queries``'s records of the queries
     in frames ``args.loop_trace``."""
-    from vslam_tpu_torch.eval import ate
+    from vslam_tpu_torch.eval import ate, recovery
 
-    seq, make, run = bench_world(args.backend, args.device, args.schedule)
+    seq, make, run = bench_world(args.backend, args.device, args.jax_stride)
     replays = replay_relocalization(args.backend) if args.replay_reloc \
         else None
+    harvests = record_harvests(args.backend)
     for seed in args.seeds:
         drv = make(seed)
         queries = trace_loop_queries(drv) if args.loop_trace else None
+        reads = trace_reads(drv, args.backend)
+        harvests.clear()
         if replays is not None:
             replays.clear()
         t0 = time.perf_counter()
         run(drv)
         fids, pos, _ = drv.keyframe_trajectory()
-        ok = np.asarray(drv.results()["tracked_ok"])
+        res = drv.results()
+        ok = np.asarray(res["tracked_ok"])
+        strides = reads.pop("strides", None)
         print(json.dumps(dict(
             scenario="bench", backend=args.backend, device=where, seed=seed,
+            schedule=schedule_name(args.backend, args.jax_stride),
             kf_ate_m=float(ate.align_svd(pos, seq.poses[fids, :3])[2]),
             keyframes=int(len(fids)),
             loop_frames=[[int(drv.frame_of_slot[a]),
@@ -565,9 +574,17 @@ def sweep_bench(args, where):
             gba_merges=int(drv.gba_merges),
             reloc_attempts=len(drv.reloc_events),
             reloc_ok=sum(bool(o) for _, o in drv.reloc_events),
-            reloc_frames=[int(f) for f, _ in drv.reloc_events],
-            reloc_diags=drv.reloc_diags,
+            attempts=recovery.attempt_records(
+                drv.reloc_diags, np.asarray(res["trajectory"]), seq.poses,
+                harvests),
+            loss_episodes=recovery.loss_episodes(
+                ok, np.asarray(res["is_keyframe"]), drv.reloc_events),
             lost_frames=int((~ok[1:]).sum()),
+            reads=reads,
+            **({} if strides is None else dict(
+                stride_counts={str(k): strides.count(k)
+                               for k in sorted(set(strides))},
+                stride_max=max(strides, default=1))),
             loop_stats=dict(drv.loop_stats),
             rejected_loops=[[int(drv.frame_of_slot[a]),
                              int(drv.frame_of_slot[b]), int(n), int(v)]
@@ -577,30 +594,41 @@ def sweep_bench(args, where):
                 if args.loop_trace[0] <= q["frame"] <= args.loop_trace[1]
             ])),
             **({} if replays is None else dict(reloc_replays=list(replays))),
-            schedule="chunk8" if args.backend == "jax" else args.schedule,
             seconds=time.perf_counter() - t0)), flush=True)
 
 
 REVISIT = (160, 215)   # the bench world's first revisit, in frames
 
 
+def fisher_p(a, b, key, of):
+    """Two-sided Fisher test of ``a[key]`` of ``a[of]`` against ``b``'s."""
+    from scipy import stats
+
+    return float(stats.fisher_exact(
+        [[a[key], a[of] - a[key]], [b[key], b[of] - b[key]]])[1])
+
+
 def summarize(paths):
     """One JSON line per (backend, schedule) over the ``--scenario bench``
     lines in ``paths``: runs, runs that close a loop, those that close in
     the first revisit (``REVISIT``), the median closure frame,
-    relocalization attempts and accepted ones (where the lines carry the
-    attempts' diagnostics: those whose best PnP had under 10 inliers, those
-    over the motion gate, and how many frames lost each came), and (from
-    ``--loop-trace``)
+    relocalization attempts and accepted ones (from the attempt records:
+    those whose best PnP had under 10 inliers, those over the motion gate,
+    how many frames lost each came, accepted / attempts by frames-lost bin;
+    from the loss census: episodes per run and how they ended), and
+    (from ``--loop-trace``)
     the loop queries in the first revisit: per run, the share with
     candidates, the share with candidates after a query with candidates,
     the share with no strongly covisible keyframe, the median minimum and
     best scores; from ``--replay-reloc``, the attempts whose two replays
     gave the same result, each package's accepted ones and the non-finite
-    DLT hypotheses. Then, for each port schedule against the JAX runs, the
-    two-sided Fisher test of first-revisit closures and of accepted
-    relocalizations, and the Mann-Whitney test of the closure frames."""
+    DLT hypotheses. Then, for each port schedule against each JAX one,
+    the two-sided Fisher tests of runs closing a loop, of first-revisit
+    closures and of accepted relocalizations, and the Mann-Whitney test
+    of the closure frames. Returns the lines as a list."""
     from scipy import stats
+
+    from vslam_tpu_torch.eval import recovery
 
     groups = {}
     for path in paths:
@@ -608,10 +636,9 @@ def summarize(paths):
             for line in fh:
                 d = json.loads(line) if line.startswith("{") else {}
                 if d.get("scenario") == "bench" and "seed" in d:
-                    key = (d["backend"], "chunk8" if d["backend"] == "jax"
-                           else d.get("schedule", "frame"))
+                    key = (d["backend"], d.get("schedule", "frame"))
                     groups.setdefault(key, {})[d["seed"]] = d
-    out = {}
+    out, lines = {}, []
     lo, hi = REVISIT
     for (backend, schedule), runs in sorted(groups.items()):
         first = [d["loop_frames"][0][0] for d in runs.values()
@@ -619,19 +646,36 @@ def summarize(paths):
         rec = dict(backend=backend, schedule=schedule, runs=len(runs),
                    closed=len(first),
                    closed_in_first_revisit=sum(f < hi for f in first),
-                   median_closure_frame=float(np.median(first)),
+                   median_closure_frame=(float(np.median(first)) if first
+                                         else None),
                    closure_frames=sorted(first),
                    reloc_attempts=sum(d["reloc_attempts"]
                                       for d in runs.values()),
                    reloc_accepted=sum(d["reloc_ok"] for d in runs.values()))
-        diags = [x for d in runs.values() for x in d.get("reloc_diags", ())]
-        if diags:
+        records = [x for d in runs.values() for x in d.get("attempts", ())]
+        if records:
             rec["reloc_diagnosed"] = dict(
-                attempts=len(diags),
-                no_pose=sum(x["best_n"] < 10 for x in diags),
+                attempts=len(records),
+                no_pose=sum(x["best_n"] < 10 for x in records),
                 over_gate=sum(x["best_gate_err"] is not None
-                              and "T_wc" not in x for x in diags),
-                frames_lost=sorted(x["frames_lost"] for x in diags))
+                              and not x["ok"] for x in records),
+                frames_lost=sorted(x["frames_lost"] for x in records))
+            rec["accepted_by_frames_lost"] = recovery.acceptance_by_bin(
+                records)
+        census = [d["loss_episodes"] for d in runs.values()
+                  if "loss_episodes" in d]
+        if census:
+            eps = [e for c in census for e in c]
+            rec["loss_episodes"] = dict(
+                per_run=len(eps) / len(census),
+                median_length=(float(np.median([e[1] for e in eps]))
+                               if eps else None),
+                ended={k: sum(e[2] == k for e in eps)
+                       for k in ("relocalized", "self", "rebootstrap",
+                                 "open")})
+        strides = [d for d in runs.values() if "stride_max" in d]
+        if strides:
+            rec["stride_max"] = sorted(d["stride_max"] for d in strides)
         traced = [d for d in runs.values() if "loop_queries" in d]
         if traced:
             seqs = [[q for q in d["loop_queries"] if lo <= q["frame"] < hi]
@@ -669,26 +713,28 @@ def summarize(paths):
                 **{k: sum(r["nonfinite_hypotheses"][k] for r in replays)
                    for k in ("jax_only", "port_only", "both", "of")})
         out[backend, schedule] = rec
+        lines.append(rec)
         print(json.dumps(rec), flush=True)
-    ref = next((r for (b, _), r in out.items() if b == "jax"), None)
     for (backend, schedule), rec in out.items():
-        if backend != "torch" or ref is None:
+        if backend != "torch":
             continue
-        print(json.dumps(dict(
-            port_schedule=schedule,
-            fisher_first_revisit_p=stats.fisher_exact(
-                [[ref["closed_in_first_revisit"],
-                  ref["runs"] - ref["closed_in_first_revisit"]],
-                 [rec["closed_in_first_revisit"],
-                  rec["runs"] - rec["closed_in_first_revisit"]]])[1],
-            fisher_reloc_accepted_p=stats.fisher_exact(
-                [[ref["reloc_accepted"],
-                  ref["reloc_attempts"] - ref["reloc_accepted"]],
-                 [rec["reloc_accepted"],
-                  rec["reloc_attempts"] - rec["reloc_accepted"]]])[1],
-            mannwhitney_closure_frame_p=float(stats.mannwhitneyu(
-                ref["closure_frames"], rec["closure_frames"]).pvalue))),
-            flush=True)
+        for (ref_backend, ref_schedule), ref in out.items():
+            if ref_backend != "jax":
+                continue
+            line = dict(
+                port_schedule=schedule, jax_schedule=ref_schedule,
+                fisher_closed_p=fisher_p(ref, rec, "closed", "runs"),
+                fisher_first_revisit_p=fisher_p(
+                    ref, rec, "closed_in_first_revisit", "runs"),
+                fisher_reloc_accepted_p=fisher_p(
+                    ref, rec, "reloc_accepted", "reloc_attempts"),
+                mannwhitney_closure_frame_p=(float(stats.mannwhitneyu(
+                    ref["closure_frames"], rec["closure_frames"]).pvalue)
+                    if ref["closure_frames"] and rec["closure_frames"]
+                    else None))
+            lines.append(line)
+            print(json.dumps(line), flush=True)
+    return lines
 
 
 CAMERA_WORLD = dict(num_frames=128, num_points=1200, width=752, height=480,
@@ -745,7 +791,7 @@ def sweep_camera(args, where):
         flush=True)
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--backend", choices=("torch", "jax"))
     ap.add_argument("--device", default="cuda")
@@ -757,16 +803,17 @@ def main():
                                                                  "LAST"),
                     help="bench scenario: record the loop detector's "
                          "queries in these frames")
-    ap.add_argument("--schedule", choices=("frame", "lagged"),
-                    default="frame",
-                    help="bench scenario, port: the driver's own poll "
-                         "schedule, or bench.py's lagged chunk schedule")
+    ap.add_argument("--jax-stride", choices=("pinned", "adaptive"),
+                    default="pinned",
+                    help="bench scenario, JAX: hold the chunked driver's "
+                         "lagged-poll stride at 1 (the port's schedule) "
+                         "or let it adapt to the fetches' waits")
     ap.add_argument("--replay-reloc", action="store_true",
                     help="bench scenario: replay every relocalization "
                          "attempt through both packages")
     ap.add_argument("--summarize", nargs="+", metavar="FILE",
                     help="summarize bench-scenario output files and exit")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.summarize:
         summarize(args.summarize)
         return

@@ -276,7 +276,7 @@ def bench_single(em: Emitter, frames, calib, use_slam_driver: bool,
 
 def bench_full_slam(em: Emitter, world=None, num_frames: int = 288,
                     num_features: int = 300, max_runs: int = 5,
-                    poll_every: int = 32, warm: int = 32,
+                    poll_every: int = 32, chunk: int = 8, warm: int = 32,
                     warmup_run: bool = True, device="cuda"):
     """Full-SLAM throughput and accuracy on a world where closures fire
     organically: the pano revisit world (752x480, 1.75 revolutions) with
@@ -308,7 +308,8 @@ def bench_full_slam(em: Emitter, world=None, num_frames: int = 288,
         if full:
             slam = StreamingSLAM(seq.calib, make_cfg(True), voc,
                                  max_frames=num_frames + 8,
-                                 poll_every=poll_every, device=dev)
+                                 poll_every=poll_every, chunk=chunk,
+                                 device=dev)
         else:
             slam = StreamingVO(seq.calib, make_cfg(False),
                                max_frames=num_frames + 8, device=dev)
@@ -328,8 +329,8 @@ def bench_full_slam(em: Emitter, world=None, num_frames: int = 288,
                 f"-feature budget -> organic drift; loop closure + GBA after "
                 f"loop + relocalization ON; closure + pose graph + GBA "
                 f"(solved at dispatch) inside the timed region; trained BoW, "
-                f"poll_every={poll_every}; VO control shares the lost-frame "
-                f"KF gate")
+                f"poll_every={poll_every}, chunk={chunk}; VO control shares "
+                f"the lost-frame KF gate")
     warm_s = 0.0
     if warmup_run:
         # phase marker: a kill during the warm-up still leaves a line

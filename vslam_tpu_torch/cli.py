@@ -256,7 +256,7 @@ def _main_streaming(args):
 
         voc = vocab_mod.load_dbow2_text(args.voc_path)
         print(f"Loaded vocabulary: {voc.num_words} words", file=sys.stderr)
-        slam = StreamingSLAM(calib, cfg, voc, max_frames=n + 8,
+        slam = StreamingSLAM(calib, cfg, voc, max_frames=n + 8, chunk=4,
                              device=args.device)
     else:
         slam = StreamingVO(calib, cfg, max_frames=n + 8, device=args.device)

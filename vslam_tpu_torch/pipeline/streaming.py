@@ -375,15 +375,29 @@ class StreamingSLAM(StreamingVO):
     features stay in the state; when a poll finds the newest
     ``reloc_lost_frames`` frames all lost, it runs the BoW + PnP recovery
     (loop/relocalize.py) against the live map and patches the tracker
-    pose; failed attempts back off exponentially. ``run`` reads the loss
-    log after every frame and polls as soon as the newest frames are
-    lost, then after every frame until tracking recovers (lost mode).
+    pose; failed attempts back off exponentially.
+
+    ``run`` reads the events and the loss log on the reference's
+    schedule, so that both packages attempt relocalization on the same
+    frames. At ``chunk=1`` it polls every ``poll_every`` frames and at the
+    end. At ``chunk=C > 1`` (``poll_every`` a multiple of C) it reads, at
+    each C-frame boundary, what the previous boundary had logged (a
+    lagged poll); where that shows a sustained loss it polls the current
+    state at once. A poll of the current state that finds the newest
+    frames lost enters lost mode, which polls the current state at every
+    boundary until tracking is back. A tail of fewer than C frames runs
+    frame by frame before the last poll. The reference's chunked driver
+    also stretches the lagged poll's stride (up to ``poll_every // C``
+    boundaries) while its fetches wait long on a congested device link;
+    the port keeps the stride at 1, which is what a quiet link gives it.
+    ``process_frame`` stays one frame at a time: only the host's reading
+    points follow the chunks.
 
     The reference hides its accelerator's round trip behind a device-side
-    keyframe event ring, one packed poll buffer, lagged polls and chunked
-    dispatch; the port keeps the events in a host list and polls
-    synchronously. The host RANSAC draws of closure and relocalization
-    come from a ``torch.Generator`` seeded with ``cfg.seed + 1``.
+    keyframe event ring, one packed poll buffer and chunked dispatch; the
+    port keeps the events in a host list and reads the logs directly. The
+    host RANSAC draws of closure and relocalization come from a
+    ``torch.Generator`` seeded with ``cfg.seed + 1``.
 
     A vocabulary is required (the reference equally loads ORBvoc.txt
     before processing, slam.cpp:370-380).
@@ -391,10 +405,15 @@ class StreamingSLAM(StreamingVO):
 
     def __init__(self, calib: Calibration, config: Optional[SlamConfig],
                  vocabulary, max_frames: int = 8192, poll_every: int = 16,
-                 device="cuda", feature_fn=None):
+                 chunk: int = 1, device="cuda", feature_fn=None):
         if vocabulary is None:
             raise ValueError("StreamingSLAM requires a pretrained "
                              "vocabulary (loop.vocabulary.train)")
+        chunk = max(1, int(chunk))
+        if chunk > 1 and poll_every % chunk:
+            raise ValueError(f"poll_every={poll_every} must be a multiple "
+                             f"of chunk={chunk} (polls land on chunk "
+                             "boundaries)")
         cfg = config or SlamConfig()
         super().__init__(calib, cfg, max_frames, vocabulary=vocabulary,
                          store_features=cfg.enable_relocalization,
@@ -402,6 +421,7 @@ class StreamingSLAM(StreamingVO):
         from ..loop.detector import LoopDetector
 
         self.poll_every = poll_every
+        self.chunk = chunk
         self.detector = LoopDetector(self.cfg.num_consistency)
         self.covis_host: dict = {}
         self.frame_of_slot: dict = {}
@@ -418,7 +438,10 @@ class StreamingSLAM(StreamingVO):
         self.loop_timings = collections.Counter()
         self.loop_stats = collections.Counter()
         self._ev_consumed = 0
+        # lost mode (chunked runs): poll the current state at every chunk
+        # boundary while the newest frames are lost
         self._lost_mode = False
+        self._lagged_n = None   # frames logged at the last unread boundary
         self._last_closure_frame = -(10 ** 9)
         self._pending_gba = None
         self.gba_merges = 0
@@ -430,39 +453,61 @@ class StreamingSLAM(StreamingVO):
             self.cfg.pnp_inlier_thresh_px)
 
     def run(self, frames):
-        """Process [(img_l, img_r)] pairs, polling every ``poll_every``
-        frames, as soon as the newest ``reloc_lost_frames`` frames are lost,
-        after every frame while lost (lost mode), and at the end."""
-        for i, (img_l, img_r) in enumerate(frames):
+        """Process [(img_l, img_r)] pairs, polling on the reference's
+        schedule (see the class docstring). Returns the count."""
+        n, C = len(frames), self.chunk
+        if C == 1:
+            for i, (img_l, img_r) in enumerate(frames):
+                self.process_frame(img_l, img_r)
+                if (i + 1) % self.poll_every == 0:
+                    self.poll()
+            self.poll()
+            return n
+        groups = n // C
+        for g in range(groups):
+            for img_l, img_r in frames[g * C:(g + 1) * C]:
+                self.process_frame(img_l, img_r)
+            self._poll_lagged()
+            if self._lost_mode:
+                self._poll_at(self.state.frame)
+        for img_l, img_r in frames[groups * C:]:
             self.process_frame(img_l, img_r)
-            if ((i + 1) % self.poll_every == 0 or self._lost_mode
-                    or self._newest_lost()):
-                self.poll()
         self.poll()
-        return len(frames)
+        return n
 
-    def _newest_lost(self) -> bool:
-        """The newest ``reloc_lost_frames`` frames all lost (relocalization
-        on). Read after every frame, so the first poll after a loss comes
-        at once: the reference's chunked driver sees the loss log at every
-        chunk boundary (streaming.py:846-895), and a reaction a whole poll
-        period late lets the sustained-loss re-bootstrap map the coasted
-        pose first."""
-        R = self.cfg.reloc_lost_frames
-        n = min(self.state.frame, self.max_frames)
-        return (self.cfg.enable_relocalization and n >= R
-                and not bool(self.state.log_ok[n - R:n].any()))
+    def _poll_lagged(self):
+        """A chunk boundary: read what the previous boundary logged (none
+        in lost mode, whose polls read the current state), and poll the
+        current state at once where that showed a sustained loss."""
+        prev, self._lagged_n = self._lagged_n, self.state.frame
+        if prev is None or self._lost_mode:
+            return
+        if self._poll_at(prev, stale=True):
+            self._poll_at(self.state.frame)
 
     def poll(self):
         """Process the keyframe and loss events logged since the last
-        poll."""
+        poll (a boundary's that is still unread first)."""
+        if self._lagged_n is not None:
+            self._poll_at(self._lagged_n, stale=True)
+            self._lagged_n = None
+        self._poll_at(self.state.frame)
+
+    def _poll_at(self, n: int, stale: bool = False) -> bool:
+        """The poll of the first ``n`` frames' keyframe events and loss log.
+        A ``stale`` one (a lagged boundary's) leaves lost mode as it is
+        and attempts no recovery, but returns True where it would have:
+        the caller then polls the current state."""
         t_poll = time.perf_counter()
-        n = min(self.state.frame, self.max_frames)
+        fetched = []
+        while (self._ev_consumed < len(self.events)
+               and self.events[self._ev_consumed].frame < n):
+            e = self.events[self._ev_consumed]
+            self._ev_consumed += 1
+            fetched.append((e.frame, int(e.slot), e.words.cpu().numpy(),
+                            e.covis.cpu().numpy()))
+        n = min(n, self.max_frames)   # the loss log ends at max_frames
         ok_log = self.state.log_ok[:n].cpu().numpy()
-        events = self.events[self._ev_consumed:]
-        self._ev_consumed = len(self.events)
-        fetched = [(e.frame, int(e.slot), e.words.cpu().numpy(),
-                    e.covis.cpu().numpy()) for e in events]
         self.loop_timings["poll_fetch"] += time.perf_counter() - t_poll
         for frame, slot, words, covis in fetched:
             if slot < 0 or slot in self.frame_of_slot:
@@ -471,7 +516,7 @@ class StreamingSLAM(StreamingVO):
         # sustained-loss detection -> relocalization (slam.cpp:1348-1367
         # runs it per lost frame; here a poll reacts)
         R = self.cfg.reloc_lost_frames
-        if self.cfg.enable_relocalization:
+        if not stale and self.cfg.enable_relocalization:
             self._lost_mode = bool(n > 0 and not ok_log[max(0, n - R):n].any())
         if n > 0 and ok_log[n - 1]:
             self._reloc_failures = 0
@@ -479,10 +524,14 @@ class StreamingSLAM(StreamingVO):
         if (self.cfg.enable_relocalization and self.detector.db.bow_of
                 and n >= R and not ok_log[n - R:n].any()
                 and n >= self._reloc_next_attempt):
+            if stale:
+                self._merge_gba_if_ready()
+                return True
             oks = np.nonzero(ok_log[:n])[0]
             frames_lost = int(n - 1 - oks[-1]) if len(oks) else n
             self._try_relocalize_stream(n, frames_lost)
         self._merge_gba_if_ready()
+        return False
 
     def _merge_gba_if_ready(self):
         """Skip-merge a dispatched global BA (slam.cpp:1410-1447). The solve

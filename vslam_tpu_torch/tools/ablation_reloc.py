@@ -19,12 +19,12 @@ relocalization or loop closure runs ``StreamingSLAM``, the other
 - the loop counters and the drift as a share of the path's length.
 
     python -m vslam_tpu_torch.tools.ablation_reloc [--runs 1] [--frames 288]
-        [--features 300] [--poll-every 16] [--variants full,reloc,lc,vo]
-        [--out PATH] [--device cpu]
+        [--features 300] [--poll-every 16] [--chunk 8]
+        [--variants full,reloc,lc,vo] [--out PATH] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given (an error where there is
-no card). The original's ``--chunk`` (frames per TPU dispatch) has no
-counterpart: the port's drivers take one frame at a time.
+no card). ``--chunk`` is ``StreamingSLAM``'s: the frames between the
+boundaries at which it reads its logs, as the original's driver does.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def segment_ate(fids, pos, gt, loss_frame):
     return out
 
 
-def run_variant(name, seq, voc, cfg, *, poll_every, num_frames,
+def run_variant(name, seq, voc, cfg, *, poll_every, chunk, num_frames,
                 device="cuda"):
     """One run of ``cfg`` over ``seq``: the row of the table (without
     ``run`` and ``drift_pct``)."""
@@ -73,7 +73,8 @@ def run_variant(name, seq, voc, cfg, *, poll_every, num_frames,
 
     if cfg.enable_relocalization or cfg.enable_loop_closure:
         drv = StreamingSLAM(seq.calib, cfg, voc, max_frames=num_frames + 8,
-                            poll_every=poll_every, device=device)
+                            poll_every=poll_every, chunk=chunk,
+                            device=device)
     else:
         drv = StreamingVO(seq.calib, cfg, max_frames=num_frames + 8,
                           device=device)
@@ -136,7 +137,7 @@ def table(rows):
 
 
 def ablate(variants, runs=1, frames=288, features=300, poll_every=16,
-           device="cuda", world=None):
+           chunk=8, device="cuda", world=None):
     """``{"traj_len_m", "rows"}`` over the variants; ``world`` is a
     ``full_slam_world`` result to reuse (else one is made)."""
     import numpy as np
@@ -152,7 +153,8 @@ def ablate(variants, runs=1, frames=288, features=300, poll_every=16,
     for name in variants:
         for r in range(runs):
             rec = run_variant(name, seq, voc, make_cfg(**VARIANTS[name]),
-                              poll_every=poll_every, num_frames=frames,
+                              poll_every=poll_every, chunk=chunk,
+                              num_frames=frames,
                               device=dev)
             rec["run"] = r
             rec["drift_pct"] = 100.0 * rec["ate_m"] / traj_len
@@ -171,6 +173,7 @@ def main(argv=None, world=None):
     ap.add_argument("--frames", type=int, default=288)
     ap.add_argument("--features", type=int, default=300)
     ap.add_argument("--poll-every", type=int, default=16)
+    ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--out", default=os.path.join(
         REPO, "artifacts", "ablation_reloc_cuda.json"))
     ap.add_argument("--variants", default="full,reloc,lc,vo")
@@ -179,7 +182,8 @@ def main(argv=None, world=None):
                     "on request")
     args = ap.parse_args(argv)
     out = ablate(args.variants.split(","), args.runs, args.frames,
-                 args.features, args.poll_every, args.device, world)
+                 args.features, args.poll_every, args.chunk, args.device,
+                 world)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

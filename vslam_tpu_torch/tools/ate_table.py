@@ -123,7 +123,8 @@ def run_pano(full_slam: bool, seed: int, num_features: int = 600,
             vocab_mod.set_idf_weights(voc, pool)
             _pano_cache[key] = voc
         slam = StreamingSLAM(seq.calib, cfg, _pano_cache[key],
-                             max_frames=288, poll_every=16, device=dev)
+                             max_frames=288, poll_every=16, chunk=4,
+                             device=dev)
     else:
         slam = StreamingVO(seq.calib, cfg, max_frames=288, device=dev)
     slam.run(seq.images)
