@@ -453,10 +453,13 @@ def test_window_ba_solves_the_final_map_as_the_step_does(runs):
         np.testing.assert_array_equal(pose_l.numpy(),
                                       vo.state.kf.pose_l.numpy())
         np.testing.assert_array_equal(pos.numpy(), vo.state.lm.pos.numpy())
+        # eager, with the host early exit: the step's masked LM bodies
+        # give the same bits
         assert kw == dict(cam_name=vo.cam_name, huber=cfg.ba_huber_px,
                           max_iters=cfg.ba_max_iters,
                           W2=cfg.window_cams // 2, Lw=cfg.window_points,
-                          O=cfg.window_obs, obs_per_lm=cfg.ba_obs_per_lm)
+                          O=cfg.window_obs, obs_per_lm=cfg.ba_obs_per_lm,
+                          early_exit=True)
 
 
 def test_faithful_headline_is_a_direct_run_s(runs):

@@ -17,15 +17,24 @@ landmark top-2 with a leading sequence axis equals its plain version and,
 bit for bit, one launch per sequence; ``MultiSeqVO`` tracks every sequence
 of a lockstep frame in one launch of it. The matrix-free bundle
 adjustment on the card equals its CPU run (costs within 1e-3 relative,
-poses within 1e-3).
+poses within 1e-3). ``StreamingVO`` replaying its step as CUDA graphs
+makes the eager step's keyframes, tracked flags and trajectory (within
+1e-4 m, deterministic mode), and counts the kernels' launches across
+replays.
 """
 
-import numpy as np
-import pytest
-import torch
+import os
 
-from vslam_tpu_torch import synthetic
-from vslam_tpu_torch.ops import cuda_hamming, hamming
+# cuBLAS reduces reproducibly in deterministic mode only with a fixed
+# workspace, set before the first CUDA call (one test runs in that mode)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from vslam_tpu_torch import synthetic  # noqa: E402
+from vslam_tpu_torch.ops import cuda_hamming, hamming  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -510,3 +519,72 @@ def test_entry_points_on_the_card_launch_the_landmark_kernel(dev):
     assert cuda_hamming.LAUNCHES["landmark_top2"] == before + 1
     assert bool(torch.isfinite(r["poses"]).all())
     assert float(r["ba"]["final_cost"]) <= float(r["ba"]["initial_cost"])
+
+
+def _small_vo_config():
+    from vslam_tpu_torch.config import SlamConfig
+
+    return SlamConfig(
+        num_features=400, ransac_hypotheses=128, max_landmarks=8192,
+        max_keyframes=64, max_inview_landmarks=512, window_cams=24,
+        window_points=2048, window_obs=6144, ba_max_iters=10,
+        enable_relocalization=False, enable_loop_closure=False,
+        new_kf_min_inliers=60)
+
+
+def _vo_run(dev, cuda_graphs, frames=24):
+    """A driver on the small world's first ``frames`` frames; returns it,
+    its logs, the kernels' launches in the run, and the world."""
+    from vslam_tpu_torch.pipeline.streaming import StreamingVO
+
+    seq = synthetic.generate(num_frames=24, num_points=500, seed=3)
+    vo = StreamingVO(seq.calib, _small_vo_config(), max_frames=32,
+                     device=dev, cuda_graphs=cuda_graphs)
+    before = dict(cuda_hamming.LAUNCHES)
+    vo.run(seq.images[:frames])
+    torch.cuda.synchronize()
+    launches = {k: cuda_hamming.LAUNCHES[k] - before[k] for k in before}
+    return vo, vo.results(), launches, seq
+
+
+def test_graphed_streaming_vo_matches_eager(dev):
+    """``StreamingVO`` replaying its step as CUDA graphs (the default on
+    the card) against ``cuda_graphs=False`` on the small world, in
+    deterministic mode (the window BA's sums in order): the same keyframes
+    and tracked flags, the trajectories within 1e-4 m. The three graphs
+    are captured at the first two frames."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        g_vo, g, _, _ = _vo_run(dev, None)
+        _, e, _, _ = _vo_run(dev, False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert g_vo.cuda_graphs and set(g_vo._graphs) == {
+        "track", "advance", "keyframe"}
+    assert (g["is_keyframe"] == e["is_keyframe"]).all()
+    assert (g["tracked_ok"] == e["tracked_ok"]).all()
+    assert g["tracked_ok"][2:].all() and g["is_keyframe"].sum() >= 3
+    assert np.abs(g["trajectory"] - e["trajectory"]).max() <= 1e-4
+
+
+def test_graph_replays_count_kernel_launches(dev):
+    """The kernels run inside the replays, where their wrappers are not
+    called: each replay adds the launches its graph made at capture, so
+    a graphed run counts the landmark top-2 once per frame and the
+    descriptor top-2 twice per keyframe, as the eager run does."""
+    vo, res, launches, seq = _vo_run(dev, True, frames=20)
+    n_kf = int(res["is_keyframe"].sum())
+    assert launches == {"landmark_top2": 20, "hamming_top2": 2 * n_kf}
+    assert vo._graphs["track"].launches == {"landmark_top2": 1,
+                                            "hamming_top2": 0}
+    assert vo._graphs["keyframe"].launches == {"landmark_top2": 0,
+                                               "hamming_top2": 2}
+    # a dropped graph is captured again at the next frame
+    vo.set_param("match_max_dist", 70)
+    assert vo._graphs == {}
+    vo.run(seq.images[20:23])
+    assert "track" in vo._graphs and vo.results()["tracked_ok"][-3:].all()
+    # a state buffer replaced instead of written in place: the replay raises
+    vo.state = vo.state.replace(cur_pose=vo.state.cur_pose.clone())
+    with pytest.raises(RuntimeError, match="cur_pose"):
+        vo.process_frame(*seq.images[23])

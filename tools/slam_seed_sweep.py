@@ -6,7 +6,8 @@
         --device cpu --seeds 0 1 2 3 4 5
 
 ``--scenario injected`` (the default) is the injected-drift scenario of
-tests/test_streaming_slam.py (``chip_smoke.py`` phase 6).
+tests/test_streaming_slam.py (``chip_smoke.py`` phase 6, whose vocabulary
+and deterministic mode the torch backend shares).
 
 For each RANSAC seed (``SlamConfig.seed``) it runs three arms on the pano
 revisit world (``generate_pano_loop(num_frames=256, revolutions=1.75,
@@ -87,12 +88,15 @@ def torch_backend(device):
     from vslam_tpu_torch.config import SlamConfig
     from vslam_tpu_torch.pipeline.streaming import StreamingSLAM, StreamingVO
     from vslam_tpu_torch.synthetic_pano import generate_pano_loop
+    from vslam_tpu_torch.tools import bench_worlds
 
     dev = torch.device(device)
     seq = generate_pano_loop(num_frames=256, revolutions=1.75, seed=2)
     images = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
               for l, r in seq.images]
-    voc = cs.train_vocabulary(seq.images, range(0, 256, 8), 600, dev)
+    # phase 6's vocabulary
+    voc = bench_worlds.train_vocabulary(bench_worlds.vocabulary_pool(
+        seq.images, range(0, 256, 8), 600, dev))
 
     def make(arm, seed):
         cfg = cs.pano_config(SlamConfig)
@@ -105,10 +109,12 @@ def torch_backend(device):
         return StreamingVO(seq.calib, cfg, max_frames=288, device=dev)
 
     def run(drv, inject):
-        if inject:
-            cs.run_with_injection(drv, images, dev)
-        else:
-            drv.run(images)
+        # deterministic, as phase 6 runs
+        with cs.deterministic():
+            if inject:
+                cs.run_with_injection(drv, images, dev)
+            else:
+                drv.run(images)
 
     return seq, make, run, lambda drv: cs.keyframe_ate(drv, seq)
 

@@ -248,7 +248,10 @@ def bench_single(em: Emitter, frames, calib, use_slam_driver: bool,
 
     # BASELINE.md's tracked metric: ms per keyframe-window BA solve on the
     # run's final map, configured exactly as the in-step window BA. The
-    # merge writes in place, so every solve gets a copy of that map.
+    # merge writes in place, so every solve gets a copy of that map. The
+    # solve is eager, so it reads its exit back after each LM body
+    # (``early_exit``), as the reference's while_loop stops on the device;
+    # the step's graph runs every masked body instead (the same bits).
     st = vo.state
 
     def final_map():
@@ -259,7 +262,7 @@ def bench_single(em: Emitter, frames, calib, use_slam_driver: bool,
             kf, lm, st.intr0, st.intr1, cam_name=vo.cam_name,
             huber=cfg.ba_huber_px, max_iters=cfg.ba_max_iters,
             W2=cfg.window_cams // 2, Lw=cfg.window_points, O=cfg.window_obs,
-            obs_per_lm=cfg.ba_obs_per_lm)
+            obs_per_lm=cfg.ba_obs_per_lm, early_exit=True)
 
     one_ba(*final_map())
     times = []

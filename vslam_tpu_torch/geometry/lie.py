@@ -17,8 +17,10 @@ _EPS = 1e-8
 
 
 def identity_pose(dtype=torch.float32, device=None):
-    return torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype,
-                        device=device)
+    # made on the device, no copy from host memory: a CUDA graph can
+    # capture it
+    return torch.cat([torch.zeros(6, dtype=dtype, device=device),
+                      torch.ones(1, dtype=dtype, device=device)])
 
 
 # ---------------------------------------------------------------------------
@@ -41,7 +43,7 @@ def quat_mul(q1, q2):
 
 
 def quat_conj(q):
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_normalize(q):
@@ -253,8 +255,9 @@ def se3_matrix(T):
     R = quat_to_matrix(se3_q(T))
     t = se3_t(T)[..., :, None]
     top = torch.cat([R, t], dim=-1)
-    bottom = T.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
-        T.shape[:-1] + (1, 4))
+    lead = T.shape[:-1] + (1,)
+    bottom = torch.cat([T.new_zeros(lead + (3,)), T.new_ones(lead + (1,))],
+                       dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -57,3 +57,31 @@ def take_rows(table, idx):
     which = torch.arange(flat.shape[0], device=idx.device).reshape(
         idx.shape[:-1] + (1,))
     return flat[which, idx]
+
+
+def masked_put_(table, index, values, mask):
+    """``table[index] = values`` in place at the entries where ``mask``
+    holds, the others dropped, with no host read (a CUDA graph can capture
+    it): the reference's ``.at[...].set(..., mode="drop")``.
+
+    ``index`` is a tuple of [n] int64 tensors into ``table``'s leading
+    axes, each entry in range; ``values`` is [n, *rest], or one value for
+    every entry (a number or a 0-dim tensor); ``mask`` is [n] bool. The
+    targets of the masked entries must be distinct unless they all get the
+    same value. Selecting the masked entries first would size a tensor by
+    their count, a host read. Instead every unmasked entry writes again
+    what the first masked entry writes, at its target; where no entry is
+    masked, every entry writes back the value the first entry's target
+    already holds. No target then receives two different values, so
+    ``index_put_`` with duplicate indices is deterministic.
+    """
+    j = torch.argmax(mask.to(torch.uint8)).reshape(1)   # first masked entry
+    first = tuple(i.index_select(0, j) for i in index)  # [1] each
+    tgt = tuple(torch.where(mask, i, f) for i, f in zip(index, first))
+    held = table[first]                                  # [1, *rest]
+    one = not torch.is_tensor(values) or values.dim() == 0
+    v_first = values if one else values.index_select(0, j)
+    fill = torch.where(mask.any(), v_first, held)
+    m = mask.reshape(mask.shape + (1,) * (table.dim() - len(index)))
+    table.index_put_(tgt, torch.where(m, values, fill).to(table.dtype))
+    return table

@@ -27,6 +27,23 @@ _oy, _ox = np.mgrid[-HALF_PATCH_SIZE:HALF_PATCH_SIZE + 1,
 _DISC = (_ox * _ox + _oy * _oy) <= HALF_PATCH_SIZE * HALF_PATCH_SIZE
 _DISC_WX = (_DISC * _ox).astype(np.float32)
 _DISC_WY = (_DISC * _oy).astype(np.float32)
+_TABLES = dict(disc_wx=_DISC_WX, disc_wy=_DISC_WY, pattern_a=PATTERN_A,
+               pattern_b=PATTERN_B, bit_weights=[1, 2, 4, 8, 16, 32, 64, 128])
+
+# the tables as tensors, one copy per device and dtype, made at first use:
+# a CUDA graph captures their addresses, and a copy from host memory
+# cannot be captured
+_ON_DEVICE = {}
+
+
+def _on_device(name: str, device, dtype):
+    """``_TABLES[name]`` as a tensor on ``device``, made once."""
+    key = (name, str(device), dtype)
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        t = _ON_DEVICE[key] = torch.as_tensor(_TABLES[name], dtype=dtype,
+                                              device=device)
+    return t
 
 
 def gather_patches(img, corners, radius: int = PATCH_RADIUS):
@@ -61,8 +78,10 @@ def compute_angles(patches, rotate_features: bool = True):
                   c - HALF_PATCH_SIZE:c + HALF_PATCH_SIZE + 1]
     # integer pixels times integer weights: every sum below is an exact
     # f32 integer whatever the summation order
-    m01 = torch.sum(sub * patches.new_tensor(_DISC_WY), dim=(-2, -1))
-    m10 = torch.sum(sub * patches.new_tensor(_DISC_WX), dim=(-2, -1))
+    wy = _on_device("disc_wy", patches.device, patches.dtype)
+    wx = _on_device("disc_wx", patches.device, patches.dtype)
+    m01 = torch.sum(sub * wy, dim=(-2, -1))
+    m10 = torch.sum(sub * wx, dim=(-2, -1))
     return torch.atan2(m01, m10)
 
 
@@ -72,10 +91,10 @@ def compute_descriptors(patches, angles):
     ca = torch.cos(angles)[..., None]  # [..., K, 1]
     sa = torch.sin(angles)[..., None]
 
-    def rotated_idx(pat):
-        # pat [256, 2] -> flattened patch indices [..., K, 256];
+    def rotated_idx(name):
+        # pattern [256, 2] -> flattened patch indices [..., K, 256];
         # torch.round rounds half to even, as jnp.round does
-        pat = torch.as_tensor(pat, dtype=torch.float32, device=angles.device)
+        pat = _on_device(name, angles.device, torch.float32)
         px, py = pat[:, 0], pat[:, 1]
         rx = torch.round(ca * px - sa * py).to(torch.int64) + PATCH_RADIUS
         ry = torch.round(sa * px + ca * py).to(torch.int64) + PATCH_RADIUS
@@ -84,8 +103,8 @@ def compute_descriptors(patches, angles):
         return ry * _PATCH_W + rx
 
     flat = patches.reshape(patches.shape[:-2] + (-1,))  # [..., K, 39*39]
-    va = torch.gather(flat, -1, rotated_idx(PATTERN_A))
-    vb = torch.gather(flat, -1, rotated_idx(PATTERN_B))
+    va = torch.gather(flat, -1, rotated_idx("pattern_a"))
+    vb = torch.gather(flat, -1, rotated_idx("pattern_b"))
     return (va < vb).to(torch.uint8)
 
 
@@ -97,13 +116,10 @@ def describe(img, corners, rotate_features: bool = True):
     return angles, compute_descriptors(patches, angles)
 
 
-_BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
-
-
 def pack_bits(bits):
     """[..., 256] {0,1} -> [..., 32] uint8, LSB-first within each byte."""
     b = bits.reshape(bits.shape[:-1] + (32, 8)).to(torch.int32)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=bits.device)
+    w = _on_device("bit_weights", bits.device, torch.int32)
     return torch.sum(b * w, dim=-1).to(torch.uint8)
 
 

@@ -66,7 +66,7 @@ def detect_corners(img, num_features: int = 1500, quality_level=0.01,
     lead = img.shape[:-2]
     h, w = img.shape[-2:]
     dev = img.device
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    neg_inf = float("-inf")
     resp = shi_tomasi_response(img)
 
     # border mask (edge threshold): discard near-border corners

@@ -226,7 +226,7 @@ def lockstep_step(state: MultiSeqState, imgs_l, imgs_r, cfg: SlamConfig,
             obs_per_lm=cfg.ba_obs_per_lm)
         poses, points, _ = ba.solve_ba_schur(
             wp.prob, cam_name=cam_name, huber=cfg.ba_huber_px,
-            max_iters=cfg.ba_max_iters)
+            max_iters=cfg.ba_max_iters, early_exit=True)
         # in place on the views: the batch holds the result
         ba_window.merge_window_result(kf1, lm1, wp, poses, points)
         ba_pending[ba_seq] = False

@@ -6,7 +6,9 @@ pair fixed for gauge), solve it with ``solvers.ba.solve_ba_schur``, and
 merge the result back, re-anchoring each landmark's ``p_c``.
 
 Every gather index is bounded explicitly (the reference relies on XLA's
-silent clamping), and the merge writes only the valid rows in place.
+silent clamping), and the merge writes only the valid rows in place
+(``ops.compact.masked_put_``: no host read, so a CUDA graph can hold both
+functions).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from ..core.state import KeyframeState, LandmarkState
 from ..geometry import lie
-from ..ops.compact import compact_indices, top_k
+from ..ops.compact import compact_indices, masked_put_, top_k
 from ..solvers import ba
 
 
@@ -64,7 +66,8 @@ def build_window_problem(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
 
     # kf slot -> window pair index (row K is the sentinel for misses)
     kf_to_i = torch.full((K + 1,), -1, dtype=torch.int64, device=dev)
-    kf_to_i[sel_kf[sel_kf_valid]] = torch.arange(W2, device=dev)[sel_kf_valid]
+    masked_put_(kf_to_i, (sel_kf,), torch.arange(W2, device=dev),
+                sel_kf_valid)
 
     # ---- select active landmarks ----
     sel_lm, sel_lm_valid = compact_indices(lm.active & lm.valid, Lw)
@@ -130,28 +133,29 @@ def merge_window_result(kf: KeyframeState, lm: LandmarkState,
     W2 = wp.sel_kf.shape[0]
     kv = wp.sel_kf_valid
     pl = poses.reshape(W2, 2, 7)
-    kf.pose_l[wp.sel_kf[kv]] = pl[kv, 0]
-    kf.pose_r[wp.sel_kf[kv]] = pl[kv, 1]
+    masked_put_(kf.pose_l, (wp.sel_kf,), pl[:, 0], kv)
+    masked_put_(kf.pose_r, (wp.sel_kf,), pl[:, 1], kv)
     lv = wp.sel_lm_valid
-    rows = wp.sel_lm[lv]
-    lm.pos[rows] = points[lv]
+    masked_put_(lm.pos, (wp.sel_lm,), points, lv)
 
     # recompute p_c of updated landmarks from their (possibly updated) anchor
     anchor = lm.from_kf[wp.sel_lm].long()
     T_anchor = kf.pose_l[torch.clamp(anchor, 0, K - 1)]
     p_c = lie.se3_apply(lie.se3_inv(T_anchor), points)
-    lm.pos_c[rows] = p_c[lv]
+    masked_put_(lm.pos_c, (wp.sel_lm,), p_c, lv)
     return kf, lm
 
 
 def run_window_ba(kf: KeyframeState, lm: LandmarkState, intr0, intr1,
                   cam_name: str = "ds", huber=1.0, max_iters: int = 20,
                   W2: int = 12, Lw: int = 8192, O: int = 24576,
-                  obs_per_lm: int = 0):
-    """Build, solve, merge. Returns (kf, lm, stats)."""
+                  obs_per_lm: int = 0, early_exit: bool = False):
+    """Build, solve, merge. Returns (kf, lm, stats). ``early_exit`` as in
+    ``solvers.ba.solve_ba_schur``."""
     wp = build_window_problem(kf, lm, intr0, intr1, W2=W2, Lw=Lw, O=O,
                               obs_per_lm=obs_per_lm)
     poses, points, stats = ba.solve_ba_schur(
-        wp.prob, cam_name=cam_name, huber=huber, max_iters=max_iters)
+        wp.prob, cam_name=cam_name, huber=huber, max_iters=max_iters,
+        early_exit=early_exit)
     kf, lm = merge_window_result(kf, lm, wp, poses, points)
     return kf, lm, dict(stats, obs_dropped=wp.obs_dropped)

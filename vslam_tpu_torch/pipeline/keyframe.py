@@ -8,12 +8,15 @@ landmark culling.
 
 Masked writes. The reference drops masked scatter entries by pointing them
 out of bounds (``mode="drop"``); on CUDA an out-of-range index is a
-device-side assert, so the port selects the unmasked entries first and
-writes only those. The rows written in one call are distinct: the
+device-side assert, and selecting the masked entries first would size a
+tensor by their count (a host read, which a CUDA graph cannot hold). The
+port writes with ``ops.compact.masked_put_``, whose unmasked entries
+repeat the write of a masked one, so every call keeps its shapes and
+reads nothing back. The rows written in one call are distinct: the
 canonical-feature dedupe keeps one feature per landmark and new landmarks
-take distinct free slots, so no index_put_ sees a duplicate index. These
-functions update the state tensors they are given in place and return the
-updated state.
+take distinct free slots. A write past the keyframe capacity goes to the
+last slot, masked off. These functions update the state tensors they are
+given in place and return the updated state.
 """
 
 from __future__ import annotations
@@ -64,31 +67,25 @@ def _scatter_obs(kf_tab, cam_tab, feat_tab, rows, kf_val, cam_val, feat_val,
     """Append one observation per masked row at its first free slot, in
     place. Rows whose table is full are skipped (the reference drops them
     too). ``rows`` must be distinct where ``mask`` holds."""
-    row_tab = kf_tab[torch.clamp(rows, min=0)]
-    empty = row_tab < 0
+    r = torch.clamp(rows, min=0)
+    empty = kf_tab[r] < 0
     free = torch.argmax(empty.to(torch.uint8), dim=-1)   # first free slot
-    sel = torch.nonzero(mask & empty.any(dim=-1)).squeeze(1)
-    r, c = rows[sel], free[sel]
-
-    def put(tab, val):
-        val = val[sel] if torch.is_tensor(val) and val.dim() else val
-        tab[r, c] = torch.as_tensor(val, dtype=tab.dtype, device=tab.device)
-
-    put(kf_tab, kf_val)
-    put(cam_tab, cam_val)
-    put(feat_tab, feat_val)
+    put = mask & empty.any(dim=-1)
+    for tab, val in ((kf_tab, kf_val), (cam_tab, cam_val),
+                     (feat_tab, feat_val)):
+        compact.masked_put_(tab, (r, free), val, put)
 
 
 def _bank_add(lm: LandmarkState, rows, bits, mask):
     """Round-robin insert descriptors into the banks of the masked rows,
     in place."""
     B = lm.bank_bits.shape[1]
-    sel = torch.nonzero(mask).squeeze(1)
-    r = rows[sel]
-    cursor = (lm.bank_next[r] % B).to(torch.int64)
-    lm.bank_bits[r, cursor] = bits[sel]
-    lm.bank_valid[r, cursor] = True
-    lm.bank_next[r] += 1
+    r = torch.clamp(rows, min=0)
+    nxt = lm.bank_next[r]
+    cursor = (nxt % B).to(torch.int64)
+    compact.masked_put_(lm.bank_bits, (r, cursor), bits, mask)
+    compact.masked_put_(lm.bank_valid, (r, cursor), True, mask)
+    compact.masked_put_(lm.bank_next, (r,), nxt + 1, mask)
 
 
 def _obs_both(lm: LandmarkState, rows, kf_val, cam_val, feat_val, mask):
@@ -125,21 +122,24 @@ def insert_keyframe(kf: KeyframeState, lm: LandmarkState, frame_id,
     dev = kf.frame_id.device
     match_lm, stereo_j = match_lm.long(), stereo_j.long()
     slot = kf.next_slot.clone()                       # [] int32
-    in_cap = slot < Kcap
-    s = torch.clamp(slot, max=Kcap - 1).to(torch.int64)
+    in_cap = (slot < Kcap).reshape(1)
+    s = (torch.clamp(slot, max=Kcap - 1).to(torch.int64).reshape(1),)
 
     # ---------------- write keyframe record ----------------
-    if bool(in_cap):
-        kf.frame_id[s] = torch.as_tensor(frame_id, dtype=torch.int32)
-        kf.pose_l[s] = T_w_c
-        kf.pose_r[s] = lie.se3_mul(T_w_c, T_0_1)
-        kf.valid[s] = True
-        kf.active[s] = True
-        kf.parent[s] = torch.as_tensor(parent_slot, dtype=torch.int32)
-        kf.corners[s] = torch.stack([feats_l.corners, feats_r.corners])
-        kf.desc[s] = torch.stack([describe_ops.pack_bits(feats_l.bits),
-                                  describe_ops.pack_bits(feats_r.bits)])
-        kf.kp_valid[s] = torch.stack([feats_l.valid, feats_r.valid])
+    # (masked off past the capacity: the reference's dropped writes)
+    record = (
+        (kf.frame_id, frame_id),
+        (kf.pose_l, T_w_c[None]),
+        (kf.pose_r, lie.se3_mul(T_w_c, T_0_1)[None]),
+        (kf.valid, True),
+        (kf.active, True),
+        (kf.parent, parent_slot),
+        (kf.corners, torch.stack([feats_l.corners, feats_r.corners])[None]),
+        (kf.desc, torch.stack([describe_ops.pack_bits(feats_l.bits),
+                               describe_ops.pack_bits(feats_r.bits)])[None]),
+        (kf.kp_valid, torch.stack([feats_l.valid, feats_r.valid])[None]))
+    for tab, val in record:
+        compact.masked_put_(tab, s, val, in_cap)
     kf.next_slot += 1
 
     # ------------- attach observations of tracked inliers -------------
@@ -164,7 +164,7 @@ def insert_keyframe(kf: KeyframeState, lm: LandmarkState, frame_id,
     sj = torch.clamp(stereo_j, min=0)
     _obs_both(lm, rows, slot_val, 1, sj, tracked_r)
     _bank_add(lm, rows, feats_r.bits[sj], tracked_r)
-    lm.active[rows[tracked]] = True
+    compact.masked_put_(lm.active, (rows,), True, tracked)
 
     # ------------------- triangulate new landmarks -------------------
     is_new = stereo_inlier & (stereo_j >= 0) & ~tracked & feats_l.valid
@@ -186,12 +186,9 @@ def insert_keyframe(kf: KeyframeState, lm: LandmarkState, frame_id,
     nrows = torch.where(m, new_slots, torch.zeros_like(new_slots))
     p_w = lie.se3_apply(T_w_c, p_c)
 
-    tgt = nrows[m]
-    lm.pos[tgt] = p_w[m]
-    lm.pos_c[tgt] = p_c[m]
-    lm.from_kf[tgt] = slot_val
-    lm.valid[tgt] = True
-    lm.active[tgt] = True
+    for tab, val in ((lm.pos, p_w), (lm.pos_c, p_c), (lm.from_kf, slot_val),
+                     (lm.valid, True), (lm.active, True)):
+        compact.masked_put_(tab, (nrows,), val, m)
     _obs_both(lm, nrows, slot_val, 0, feat_ids, m)
     _obs_both(lm, nrows, slot_val, 1, sj, m)
     _bank_add(lm, nrows, feats_l.bits, m)
@@ -205,8 +202,7 @@ def insert_keyframe(kf: KeyframeState, lm: LandmarkState, frame_id,
     mp = torch.full((N,), -1, dtype=torch.int64, device=dev)
     mp = torch.where(tracked, match_lm, mp)
     mp = torch.where(m, new_slots, mp).to(torch.int32)
-    if bool(in_cap):
-        kf.map_points[s] = mp
+    compact.masked_put_(kf.map_points, s, mp[None], in_cap)
 
     # ------------------- covisibility counting -------------------
     # landmarks of this KF: their all_obs entries at left cams of other KFs
@@ -241,7 +237,8 @@ def deactivate_keyframes(kf: KeyframeState, lm: LandmarkState, deact_mask,
             deact_mask, torch.arange(K, device=deact_mask.device),
             torch.full((K,), -1, device=deact_mask.device)), max_evict)[0]
         strip = torch.zeros(K + 1, dtype=torch.bool, device=deact_mask.device)
-        strip[torch.where(ids >= 0, ids, torch.full_like(ids, K))] = True
+        strip.index_fill_(
+            0, torch.where(ids >= 0, ids, torch.full_like(ids, K)), True)
         deact_mask = strip[:K]
     obs_gone = (lm.obs_kf >= 0) & deact_mask[torch.clamp(lm.obs_kf, min=0)
                                              .to(torch.int64)]
@@ -265,33 +262,44 @@ def evict_to_newest(kf: KeyframeState, lm: LandmarkState, keep_n: int):
 def cull_under_pressure(kf: KeyframeState, lm: LandmarkState,
                         pressure: float, min_lifetime_obs: int):
     """``cull_landmarks`` when at least ``pressure`` of the landmark table
-    is allocated (one host read of the count), else the state as it is."""
-    if int(lm.valid.sum()) >= int(pressure * lm.valid.shape[0]):
-        kf, lm, _ = cull_landmarks(kf, lm, min_lifetime_obs=min_lifetime_obs)
+    is allocated, else the state as it is: chosen on the device, as the
+    reference's ``lax.cond`` chooses, with no host read. The pressure test
+    gates the cull's dead-landmark mask, so below the pressure no landmark
+    is freed and every field comes out as it went in."""
+    press = lm.valid.sum() >= int(pressure * lm.valid.shape[0])
+    kf, lm, _ = cull_landmarks(kf, lm, min_lifetime_obs=min_lifetime_obs,
+                               enable=press)
     return kf, lm
 
 
 def cull_landmarks(kf: KeyframeState, lm: LandmarkState,
-                   min_lifetime_obs: int = 3, max_cull: int = 4096):
+                   min_lifetime_obs: int = 3, max_cull: int = 4096,
+                   enable=True):
     """Free the slots of weakly-observed dead landmarks (valid, out of the
     BA window, fewer than ``min_lifetime_obs`` lifetime left-camera
     observations), at most ``max_cull`` per call, and clear every keyframe
     map_points cell that referenced them (through their lifetime-obs
-    tables). Returns (kf, lm, num_culled)."""
+    tables). ``enable`` (a bool or a [] bool tensor) False frees nothing.
+    Returns (kf, lm, num_culled)."""
     nobs = torch.sum((lm.all_kf >= 0) & (lm.all_cam == 0), dim=-1)
-    want_dead = lm.valid & ~lm.active & (nobs < min_lifetime_obs)
+    want_dead = lm.valid & ~lm.active & (nobs < min_lifetime_obs) & enable
     dead_ids, dead_ok = compact.compact_indices(want_dead, max_cull)
     L = lm.pos.shape[0]
     rows = torch.clamp(dead_ids, 0, L - 1)
-    dead = torch.zeros(L, dtype=torch.bool, device=want_dead.device)
-    dead[dead_ids[dead_ok]] = True
+    # unselected entries of dead_ids are L: they mark the extra row only
+    dead = torch.zeros(L + 1, dtype=torch.bool, device=want_dead.device)
+    dead.index_fill_(0, dead_ids, True)
+    dead = dead[:L]
     akf = lm.all_kf[rows]                       # [C, M2]
     acam = lm.all_cam[rows]
     afeat = lm.all_feat[rows]
     K = kf.frame_id.shape[0]
     wr = dead_ok[:, None] & (akf >= 0) & (akf < K) & (acam == 0)
     mp = kf.map_points.clone()
-    mp[akf[wr].to(torch.int64), afeat[wr].to(torch.int64)] = -1
+    compact.masked_put_(
+        mp, (torch.clamp(akf, 0, K - 1).reshape(-1).to(torch.int64),
+             torch.clamp(afeat, 0, mp.shape[1] - 1).reshape(-1)
+             .to(torch.int64)), -1, wr.reshape(-1))
     kf = kf.replace(map_points=mp)
     lm = lm.replace(
         valid=lm.valid & ~dead,

@@ -653,11 +653,11 @@ class SlamSystem:
             # BA (slam.cpp:1545, map_utils.h:397-403)
             ba_poses, ba_points, ba_intr, _ = ba_mod.solve_ba_schur_intrinsics(
                 wp.prob, cam_name=self.cam_name, huber=cfg.ba_huber_px,
-                max_iters=cfg.ba_max_iters)
+                max_iters=cfg.ba_max_iters, early_exit=True)
         else:
             ba_poses, ba_points, _ = ba_mod.solve_ba_schur(
                 wp.prob, cam_name=self.cam_name, huber=cfg.ba_huber_px,
-                max_iters=cfg.ba_max_iters)
+                max_iters=cfg.ba_max_iters, early_exit=True)
             ba_intr = None
         self._pending_ba = (wp, ba_poses, ba_points, ba_intr)
 

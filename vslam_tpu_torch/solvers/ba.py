@@ -19,9 +19,15 @@ Jacobian with respect to the 8 intrinsics goes the same way, eight more.
 ``jax.ops.segment_sum`` becomes ``index_add_`` (on the card an atomic sum,
 so the summation order, and the last bits, vary from run to run).
 
-The reference's ``lax.while_loop`` is a host loop with the same function
-tolerance, gradient tolerance and stuck exit: one host read of the exit
-flag per LM iteration.
+The reference's ``lax.while_loop`` runs on the device: its body repeats
+until the function tolerance, the gradient tolerance or the stuck exit
+holds, or ``max_iters`` bodies have run. Here the loop runs ``max_iters``
+bodies and a device flag ``done``, set after the body in which an exit
+first holds, masks every later body's update of the poses, points,
+damping and cost, and the iteration count: the same results, with no host
+read, so a CUDA graph can hold the solve. ``early_exit=True`` adds a host
+read of ``done`` after each body and stops there, for eager callers that
+would rather not pay for the masked bodies; the results are the same bits.
 """
 
 from __future__ import annotations
@@ -98,7 +104,7 @@ def project_jacobian(cam_name, intr, p_c):
     pred, cols = None, []
     for k in range(3):
         tangent = torch.zeros_like(p_c)
-        tangent[:, k] = 1.0
+        tangent[:, k].fill_(1.0)
         pred, col = torch.func.jvp(proj, (p_c,), (tangent,))
         cols.append(col)
     return pred, torch.stack(cols, dim=-1)
@@ -228,11 +234,12 @@ def _lm_gain_update(cost, new_cost, lam, nu, pred, step_inf,
 
 def solve_ba_schur(prob: BAProblem, cam_name: str = "ds", huber=1.0,
                    max_iters: int = 20, lam0: float = 1e-4,
-                   step_cap: float = 10.0):
+                   step_cap: float = 10.0, early_exit: bool = False):
     """LM bundle adjustment with explicit Schur elimination.
 
     Returns (poses [K,7], points [L,3], stats dict of 0-dim tensors and the
-    iteration count).
+    iteration count: a 0-dim int32 tensor, or an int with
+    ``early_exit=True``, module docstring).
     """
     ftol = 1e-6   # Ceres-style function tolerance
     gtol = 0.05   # relative gradient tolerance
@@ -246,11 +253,12 @@ def solve_ba_schur(prob: BAProblem, cam_name: str = "ds", huber=1.0,
     free_p = prob.point_valid[:, None].to(dtype)
     fixed = prob.pose_fixed[:, None]
     poses, points = prob.poses, prob.points
-    lam = torch.tensor(lam0, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    lam = torch.full((), lam0, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     init_cost = cost = cost_of(poses, points)
-    iters = 0
-    while iters < max_iters:
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max_iters):
         Hcc, Hpp, U, bc, bp, _ = _normal_equations(cam_name, prob, poses,
                                                    points, huber)
         # gradient termination: at a (local) optimum every step is
@@ -270,18 +278,24 @@ def solve_ba_schur(prob: BAProblem, cam_name: str = "ds", huber=1.0,
         b_dot = torch.sum(bc * dcf) + torch.sum(bp * dpf)
         pred = 0.5 * (lam * d_sq - b_dot)
         step_inf = torch.max(torch.abs(dcf))
-        accept, converged, lam, nu = _lm_gain_update(
+        accept, converged, lam_new, nu_new = _lm_gain_update(
             cost, new_cost, lam, nu, pred, step_inf, step_cap, ftol)
-        poses = torch.where(accept, new_poses, poses)
-        points = torch.where(accept, new_points, points)
-        cost = torch.where(accept, new_cost, cost)
-        iters += 1
+        # the body's updates hold until the body in which an exit held
+        live = ~done
+        take = accept & live
+        poses = torch.where(take, new_poses, poses)
+        points = torch.where(take, new_points, points)
+        cost = torch.where(take, new_cost, cost)
+        lam = torch.where(live, lam_new, lam)
+        nu = torch.where(live, nu_new, nu)
+        iters = iters + live.to(torch.int32)
         # a rejected step with huge lambda means we are stuck
-        stuck = ~accept & (lam >= 1e8)
-        if bool(converged | stuck | done_grad):
+        stuck = ~accept & (lam_new >= 1e8)
+        done = done | converged | stuck | done_grad
+        if early_exit and bool(done):
             break
     stats = {"initial_cost": init_cost, "final_cost": cost, "lambda": lam,
-             "iterations": iters}
+             "iterations": int(iters) if early_exit else iters}
     return poses, points, stats
 
 
@@ -295,7 +309,7 @@ def _obs_residual_jac_intr(cam_name, prob: BAProblem, poses, points, intr2):
     cols = []
     for k in range(8):
         tangent = torch.zeros_like(intr)
-        tangent[:, k] = 1.0
+        tangent[:, k].fill_(1.0)
         cols.append(torch.func.jvp(
             lambda i: cam_models.project(cam_name, i, p_c), (intr,),
             (tangent,))[1])
@@ -404,13 +418,13 @@ def _schur_solve_intr(Hcc, Hpp, U, bc, bp, Hii, bi, Hci, Upi, pose_fixed,
 
 def solve_ba_schur_intrinsics(prob: BAProblem, cam_name: str = "ds",
                               huber=1.0, max_iters: int = 20,
-                              lam0: float = 1e-4):
+                              lam0: float = 1e-4, early_exit: bool = False):
     """LM bundle adjustment that also optimizes the two shared intrinsics
     blocks (the reference's BundleAdjustmentOptions.optimize_intrinsics).
     ``prob.intr`` rows 0 and 1 give the starting left / right intrinsics.
 
-    Returns (poses [K,7], points [L,3], intr2 [2,8], stats). The same host
-    loop and exits as ``solve_ba_schur``.
+    Returns (poses [K,7], points [L,3], intr2 [2,8], stats). The same
+    masked loop, exits and ``early_exit`` as ``solve_ba_schur``.
     """
     ftol, gtol, step_cap = 1e-6, 0.05, 10.0
     cam2 = prob.obs_cam.long() % 2
@@ -427,11 +441,12 @@ def solve_ba_schur_intrinsics(prob: BAProblem, cam_name: str = "ds",
     fixed = prob.pose_fixed[:, None]
     poses, points = prob.poses, prob.points
     intr2 = torch.stack([prob.intr[0], prob.intr[1]])
-    lam = torch.tensor(lam0, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    lam = torch.full((), lam0, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     init_cost = cost = cost_of(poses, points, intr2)
-    iters = 0
-    while iters < max_iters:
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max_iters):
         (Hcc, Hpp, U, bc, bp, _, Hii, bi, Hci, Upi) = _normal_equations_intr(
             cam_name, prob, poses, points, intr2, huber)
         g_inf = torch.maximum(
@@ -452,16 +467,21 @@ def solve_ba_schur_intrinsics(prob: BAProblem, cam_name: str = "ds",
                  + torch.sum(bi * di))
         pred = 0.5 * (lam * d_sq - b_dot)
         step_inf = torch.max(torch.abs(dcf))
-        accept, converged, lam, nu = _lm_gain_update(
+        accept, converged, lam_new, nu_new = _lm_gain_update(
             cost, new_cost, lam, nu, pred, step_inf, step_cap, ftol)
-        poses = torch.where(accept, new_poses, poses)
-        points = torch.where(accept, new_points, points)
-        intr2 = torch.where(accept, new_intr, intr2)
-        cost = torch.where(accept, new_cost, cost)
-        iters += 1
-        stuck = ~accept & (lam >= 1e8)
-        if bool(converged | stuck | done_grad):
+        live = ~done
+        take = accept & live
+        poses = torch.where(take, new_poses, poses)
+        points = torch.where(take, new_points, points)
+        intr2 = torch.where(take, new_intr, intr2)
+        cost = torch.where(take, new_cost, cost)
+        lam = torch.where(live, lam_new, lam)
+        nu = torch.where(live, nu_new, nu)
+        iters = iters + live.to(torch.int32)
+        stuck = ~accept & (lam_new >= 1e8)
+        done = done | converged | stuck | done_grad
+        if early_exit and bool(done):
             break
     stats = {"initial_cost": init_cost, "final_cost": cost, "lambda": lam,
-             "iterations": iters}
+             "iterations": int(iters) if early_exit else iters}
     return poses, points, intr2, stats

@@ -62,4 +62,4 @@ def solve_ba_blocked(prob: BlockProblem, cam_name: str = "ds", huber=1.0,
     points [L,3], stats)."""
     return ba.solve_ba_schur(flat_problem(prob), cam_name=cam_name,
                              huber=huber, max_iters=max_iters, lam0=lam0,
-                             step_cap=step_cap)
+                             step_cap=step_cap, early_exit=True)

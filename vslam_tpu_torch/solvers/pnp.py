@@ -78,7 +78,11 @@ def _smallest_eigvec(M, iters: int = 12):
     v = torch.full(M.shape[:-1] + (1,), 1.0 / math.sqrt(n), dtype=M.dtype,
                    device=M.device)
     for _ in range(iters):
-        v = torch.cholesky_solve(v, L)
+        # cholesky_solve's two triangular solves, spelled out: batched on
+        # the card it goes to MAGMA, which allocates device memory as it
+        # runs, and a CUDA graph cannot capture that
+        v = torch.linalg.solve_triangular(L, v, upper=False)
+        v = torch.linalg.solve_triangular(L.mT, v, upper=True)
         v = v / (torch.linalg.norm(v, dim=-2, keepdim=True) + 1e-30)
     return v[..., 0]
 
@@ -209,10 +213,12 @@ def _ransac_pnp_one(points_w, bearings, valid, sample_idx, threshold,
 
     inls = _score(Rs, ts, points_w, bearings, valid, threshold)  # [H, 2, N]
     counts = inls.sum(dim=-1).reshape(-1)
-    best = torch.argmax(counts)             # first maximum, as jnp.argmax
-    R_best = Rs.reshape(-1, 3, 3)[best]
-    t_best = ts.reshape(-1, 3)[best]
-    inl_best = inls.reshape(counts.shape[0], -1)[best]
+    # first maximum, as jnp.argmax; a [1] index, as a 0-dim one would be
+    # read back to the host to index with
+    best = torch.argmax(counts).reshape(1)
+    R_best = Rs.reshape(-1, 3, 3).index_select(0, best)[0]
+    t_best = ts.reshape(-1, 3).index_select(0, best)[0]
+    inl_best = inls.reshape(counts.shape[0], -1).index_select(0, best)[0]
 
     # GN refinement on inliers (optimize_nonlinear), then re-select
     T_cw = _gn_refine(R_best, t_best, points_w, bearings,

@@ -246,7 +246,7 @@ def load_stream(vo, path: str, device="cuda"):
             fields[f.name] = torch.as_tensor(data[f.name], device=dev)
         elif val is not None:
             fields[f.name] = int(data[f.name])
-    vo.state = st.replace(**fields)
+    vo.write_state(**fields)
     if "tune" in data:
         vo.tune = {n: float(v) for n, v in zip(DEVICE_TUNABLE, data["tune"])}
     _set_generator(data, "torch_generator", vo.generator, vo.cfg.seed)
