@@ -1,0 +1,11 @@
+"""track_frame_ms: the median latency of the window's frames that made no
+keyframe (VO cells: one frame per call)."""
+
+import statistics
+
+
+def read(run):
+    if run.frames_per_call != 1:
+        return None
+    lat = [t for t, kf in zip(run.latencies_s, run.is_keyframe) if not kf]
+    return statistics.median(lat) * 1e3 if lat else None
