@@ -1,0 +1,17 @@
+"""pnp_device_ms: the median over the window's frames of body T's
+``ransac_pnp`` stage (``track.pnp``: from the stamp after K1 to the stamp
+after the PnP) in the program's spans."""
+
+import numpy as np
+
+
+def read(run):
+    from vslam_tpu_torch.utils import profiling
+
+    rec = getattr(profiling, "latest_spans", lambda: None)()
+    stop = run.first_frame + run.frames
+    if rec is None or rec.frames_held(run.first_frame, stop) == 0:
+        return None
+    d = rec.durations_ms("track.pnp", run.first_frame, stop)
+    d = d[np.isfinite(d)]
+    return float(np.median(d)) if len(d) else None

@@ -20,7 +20,8 @@ adjustment on the card equals its CPU run (costs within 1e-3 relative,
 poses within 1e-3). ``StreamingVO`` replaying its step as CUDA graphs
 makes the eager step's keyframes, tracked flags and trajectory (within
 1e-4 m, deterministic mode), and counts the kernels' launches across
-replays.
+replays; its stage stamps change no pose and no launch count, stamp in
+order inside each replay, and add no graph launch.
 """
 
 import os
@@ -532,14 +533,14 @@ def _small_vo_config():
         new_kf_min_inliers=60)
 
 
-def _vo_run(dev, cuda_graphs, frames=24):
+def _vo_run(dev, cuda_graphs, frames=24, **kwargs):
     """A driver on the small world's first ``frames`` frames; returns it,
     its logs, the kernels' launches in the run, and the world."""
     from vslam_tpu_torch.pipeline.streaming import StreamingVO
 
     seq = synthetic.generate(num_frames=24, num_points=500, seed=3)
     vo = StreamingVO(seq.calib, _small_vo_config(), max_frames=32,
-                     device=dev, cuda_graphs=cuda_graphs)
+                     device=dev, cuda_graphs=cuda_graphs, **kwargs)
     before = dict(cuda_hamming.LAUNCHES)
     vo.run(seq.images[:frames])
     torch.cuda.synchronize()
@@ -588,3 +589,72 @@ def test_graph_replays_count_kernel_launches(dev):
     vo.state = vo.state.replace(cur_pose=vo.state.cur_pose.clone())
     with pytest.raises(RuntimeError, match="cur_pose"):
         vo.process_frame(*seq.images[23])
+
+
+def test_graphed_stage_stamps_change_nothing_and_stamp_in_order(dev):
+    """Graphs with the stage stamps (``spans=True``, the default) against
+    graphs without, in deterministic mode: the logs and poses bit for bit
+    and the kernels' launch counts equal. Inside every replayed body the
+    stamps do not decrease and its last comes after its first, on the
+    host clock too; a body's span holds its stages; a replayed frame is
+    two graph launches, with a body's stamps inside them."""
+    from vslam_tpu_torch.utils import profiling
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        on, r_on, l_on, seq = _vo_run(dev, None)
+        off, r_off, l_off, _ = _vo_run(dev, None, spans=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert not off.spans and profiling.latest_spans() is on.spans
+    for name in r_on:
+        assert np.array_equal(r_on[name], r_off[name]), name
+    assert torch.equal(on.state.kf.pose_l, off.state.kf.pose_l)
+    assert l_on == l_off
+    rec = on.spans
+    got = rec.read()
+    assert got["frames"] == 24 and got["clock"]["points"] >= 2
+    kf = r_on["is_keyframe"]
+    for body, stages in profiling.BODY_STAGES.items():
+        cols = [rec._col[body, s] for s in stages]
+        st = rec._stamps[2:24][:, cols]
+        ran = (st > 0).all(1)
+        assert ran.sum() == {"track": 22, "keyframe": kf[2:].sum(),
+                             "advance": (~kf[2:]).sum()}[body]
+        assert (np.diff(st[ran], axis=1) >= 0).all()
+        assert (st[ran, -1] > st[ran, 0]).all()
+        total = rec.durations_ms("device." + body, 2, 24)
+        assert (total[np.isfinite(total)] > 0).all()
+        if len(stages) > 2:
+            parts = sum(rec.durations_ms(f"{body}.{s}", 2, 24)
+                        for s in stages[1:])
+            ok = np.isfinite(total)
+            np.testing.assert_allclose(parts[ok], total[ok], rtol=1e-9)
+    live = rec.counter("lm_live", 0, 24)
+    run = rec.counter("lm_run", 0, 24)
+    assert np.isfinite(live).sum() == kf.sum()
+    assert (live[kf] >= 1).all() and (live[kf] <= run[kf]).all()
+    # a replayed frame: two graph launches, and the same host calls as
+    # without stamps; the stamps run inside the graphs
+    calls = {}
+    for name, vo in (("on", on), ("off", off)):
+        names = _profiled_frames(vo, seq)
+        calls[name] = sorted(n for n in names if n.startswith("cuda"))
+        assert names.count("cudaGraphLaunch") == 8, name
+    assert calls["on"] == calls["off"]
+    assert len([n for n in names if "stamp_kernel" in n]) == 0  # "off"
+
+
+def _profiled_frames(vo, seq):
+    """Host and device event names of frames 2-5 after a ``reset`` (the
+    graphs captured anew at frames 0 and 1)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vo.reset()
+    vo.run(seq.images[:2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vo.run(seq.images[2:6])
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()]

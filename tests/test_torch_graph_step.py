@@ -300,11 +300,13 @@ def port_run(seq):
 
 def test_bodies_hold_no_host_read(seq, monkeypatch):
     """Bodies T, A and K, each run under ``no_host_read`` by the driver
-    itself over frames 1-5 (a keyframe at frame 4). Frame 0 runs first
-    without the check, as the first call of each body runs eagerly on the
-    card before its capture: it makes the per-device constant tables
-    (``ops.describe``) from host data once."""
-    vo = StreamingVO(seq.calib, small_config(), max_frames=16, device="cpu")
+    itself over frames 1-5 (a keyframe at frame 4), with the spans on:
+    their stage stamps and counters read nothing back either. Frame 0 runs
+    first without the check, as the first call of each body runs eagerly
+    on the card before its capture: it makes the per-device constant
+    tables (``ops.describe``) from host data once."""
+    vo = StreamingVO(seq.calib, small_config(), max_frames=16, device="cpu",
+                     spans=True)
     vo.run(seq.images[:1])
     ran = []
     for name in ("_track", "_advance_body", "_keyframe_body"):
@@ -317,6 +319,10 @@ def test_bodies_hold_no_host_read(seq, monkeypatch):
     assert ran.count("_track") == 5
     assert ran.count("_keyframe_body") == 1
     assert ran.count("_advance_body") == 4
+    spans = vo.spans.read(1, 6)["spans"]
+    assert spans["device.track"]["count"] == 5
+    assert spans["device.keyframe"]["count"] == 1
+    assert spans["device.advance"]["count"] == 4
 
 
 def test_driver_matches_jax_driver(port_run, seq):

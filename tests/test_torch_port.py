@@ -306,7 +306,7 @@ def test_synthetic_vocab_and_transform_equal():
     (tmap_io, jmap_io, ("_pose_dict", "_vec3_dict", "save_map", "load_map")),
     (teuroc, jeuroc, ("EurocSequence", "_read_timestamp_csv", "_read_gt_csv",
                       "load_sequence", "load_sample_dir")),
-    (tmetrics, jmetrics, ("StageTimer", "MetricsLogger")),
+    (tmetrics, jmetrics, ("StageTimer",)),
     (tvocab, jvocab, ("_vocab_from_flat", "save_dbow2_text")),
     (tcli, jcli, ("_make_tuner",)),
     (toverlays, joverlays, ("_to_rgb", "_draw_cross", "_draw_circle",

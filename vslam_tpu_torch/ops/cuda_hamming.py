@@ -1,10 +1,13 @@
 """Build, load and launch the Hamming top-2 CUDA kernels.
 
-``csrc/hamming_top2.cu`` is compiled at first use with ``nvcc`` for
-``sm_90a`` into ``build/vslam_tpu_torch/libhamming.so`` (beside the
-repository's packages), a shared library with a plain C interface that is
-loaded with ``ctypes``. The build is keyed on a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+``csrc/hamming_top2.cu`` (with ``csrc/stamp.cu``, the driver's stage
+stamps, launched from ``ops/cuda_stamp.py``) is compiled at first use with
+``nvcc`` for ``sm_90a`` into ``build/vslam_tpu_torch/libhamming.so``
+(beside the repository's packages), a shared library with a plain C
+interface that is loaded with ``ctypes``. The build is keyed on a hash of
+the sources and the flags, so an edited source rebuilds and an unchanged
+one loads at once. ``LOADED`` holds the host clock (``perf_counter_ns``)
+at the start and end of the first load, the build included.
 
 Both launchers hand the {0,1} descriptor bytes the main path holds to
 their kernel, which reads them with 16-byte loads (the descriptor top-2
@@ -27,6 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -34,8 +38,10 @@ import torch
 from .hamming import gate_radius_sq
 
 LAUNCHES = {"landmark_top2": 0, "hamming_top2": 0}
+LOADED = None   # (start, end) ns of the library's first load
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hamming_top2.cu"
+SOURCES = tuple(Path(__file__).resolve().parents[1] / "csrc" / name
+                for name in ("hamming_top2.cu", "stamp.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vslam_tpu_torch"
 LIBRARY = BUILD_DIR / "libhamming.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,13 +64,15 @@ def _nvcc() -> str:
 
 
 def _build_key() -> str:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for source in SOURCES:
+        h.update(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 
 
 def build() -> Path:
-    """Compile the kernels unless a build of this exact source and these
+    """Compile the kernels unless a build of these exact sources and these
     flags exists. Returns the library path."""
     key = _build_key()
     stamp = LIBRARY.with_suffix(".so.sha256")
@@ -73,7 +81,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         os.unlink(tmp)
@@ -85,9 +93,10 @@ def build() -> Path:
 
 
 def _load():
-    global _lib
+    global _lib, LOADED
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter_ns()
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.vslam_hamming_top2.argtypes = [vp, vp, vp, vp, ci, ci,
@@ -96,7 +105,16 @@ def _load():
             lib.vslam_landmark_top2.argtypes = [vp] * 7 + [
                 ctypes.c_float, ci, ci, ci, ci] + [vp] * 5
             lib.vslam_landmark_top2.restype = ci
+            lib.vslam_stamp.argtypes = [vp, vp, ci, ci, ci, vp]
+            lib.vslam_stamp.restype = ci
+            lib.vslam_count.argtypes = [vp, vp, ctypes.c_longlong, vp, ci,
+                                        ci, ci, vp]
+            lib.vslam_count.restype = ci
+            lib.vslam_mapped_pointer.argtypes = [vp,
+                                                 ctypes.POINTER(vp)]
+            lib.vslam_mapped_pointer.restype = ci
             _lib = lib
+            LOADED = (t0, time.perf_counter_ns())
     return _lib
 
 

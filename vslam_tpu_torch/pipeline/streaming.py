@@ -26,6 +26,15 @@ counterpart of ``donate_argnums``); a device frame counter, filled from
 the host's before each frame, indexes the logs, whose writes past
 ``max_frames`` are dropped as the reference's ``mode="drop"`` drops them.
 
+Spans (``spans``, on by default): every body stamps its stage boundaries
+(``utils/profiling.BODY_STAGES``; on the card a one-thread kernel captured
+into its graph, writing the device's clock into pinned host memory the
+device maps), ``process_frame`` times its host spans (the image inputs,
+each body's launch and its address check, the ``do_kf`` read), body K
+counts the window BA's live LM bodies, and set-up times each body's first
+run; ``self.spans`` (``profiling.SpanRecorder``, also
+``profiling.latest_spans()``) holds them on the host clock, per frame.
+
 On a CUDA device each body is captured as a CUDA graph and replayed
 (``cuda_graphs``, on by default there): a body runs eagerly at its first
 call, on a side stream (the warm-up, doing that frame's work), is
@@ -54,6 +63,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -72,6 +82,7 @@ from ..loop import vocabulary as vocab_mod
 from ..ops import cuda_hamming
 from ..ops.compact import masked_put_
 from ..solvers import ba, pnp
+from ..utils import profiling
 from . import ba_global, ba_window, keyframe as kf_mod, tracking
 
 
@@ -134,6 +145,10 @@ class _Graph:
     ptrs: dict
 
 
+_LAUNCH = {name: "launch." + name for name in ("track", "keyframe",
+                                                "advance")}
+
+
 def _tensor_fields(obj, prefix: str = "") -> dict:
     """{dotted field path: tensor} of a state dataclass, nested ones too
     (fields that hold None or a host integer are left out)."""
@@ -183,13 +198,18 @@ class StreamingVO:
     that fails raises; nothing falls back to the eager step.
     ``capture_stats`` holds each capture's seconds and the device memory
     it reserved for its graph's pool.
+
+    ``spans`` (on by default) records the per-frame spans and counters
+    (module docstring) in ``self.spans``; ``False`` takes no stamp at all
+    (``self.spans`` is then ``profiling.NO_SPANS``).
     """
 
     def __init__(self, calib: Calibration,
                  config: Optional[SlamConfig] = None,
                  max_frames: int = 8192, vocabulary=None,
                  store_features: bool = False, device="cuda",
-                 feature_fn=None, cuda_graphs: Optional[bool] = None):
+                 feature_fn=None, cuda_graphs: Optional[bool] = None,
+                 spans: bool = True):
         self.cfg = config or SlamConfig()
         self.calib = calib
         self.cam_name = calib.cam_types[0]
@@ -206,6 +226,8 @@ class StreamingVO:
         self._staging = {}   # pinned host copies of host images
         self._warmed = set()
         self.capture_stats = {}
+        self.spans = (profiling.SpanRecorder(max_frames, self.device)
+                      if spans else profiling.NO_SPANS)
         if self.device.type == "cuda":
             self._side_stream = torch.cuda.Stream(self.device)
             self._flag_host = torch.zeros((), dtype=torch.bool,
@@ -263,6 +285,9 @@ class StreamingVO:
                 cur_valid=torch.zeros((N,), dtype=torch.bool, device=dev))
         # the frame counter on the device, filled from state.frame
         self._frame_dev = torch.zeros((), **i32)
+        self.spans.clear()
+        if self.spans:
+            self.spans.frame_dev = self._frame_dev
         self._graphs = {}   # new buffers: the old graphs' addresses are gone
         self.events = []   # KeyframeEvent per keyframe (with a vocabulary)
         self.tune = {name: float(np.float32(v))
@@ -364,6 +389,7 @@ class StreamingVO:
         """Body T: track the left image, coast on the motion model where
         tracking fails, decide on a keyframe."""
         cfg, P, st = self.cfg, self.tune, self.state
+        self.spans.stamp("track", "start")
         predicted = lie.se3_mul(st.cur_pose, st.vel)
         res = tracking.track_frame(
             img_l, st.lm, predicted, st.last_pose, st.vel, st.intr0,
@@ -380,7 +406,9 @@ class StreamingVO:
             rotate_features=cfg.rotate_features, num_octaves=cfg.num_octaves,
             generator=self.generator,
             feats=(self.feature_fn(img_l) if self.feature_fn is not None
-                   else None))
+                   else None),
+            stamp=(functools.partial(self.spans.stamp, "track")
+                   if self.spans else None))
         ok = res.pnp_ok
         # on failure coast on the motion model
         pose = torch.where(ok, res.T_w_c, predicted)
@@ -397,27 +425,34 @@ class StreamingVO:
             do_kf = st.take_kf & (ok | bootstrap | rebootstrap)
         else:
             do_kf = st.take_kf
+        self.spans.stamp("track", "decide")
         return None, _Tracked(res=res, pose=pose, do_kf=do_kf)
 
     def _advance_body(self, t: _Tracked):
         """Body A: a tracking frame's advance."""
+        self.spans.stamp("advance", "start")
         st = self.state
         wdrop = torch.zeros((), dtype=torch.int32, device=self.device)
-        return self._advance(t, st.kf, st.lm, t.pose, st.last_kf_slot,
-                             wdrop), None
+        new = self._advance(t, st.kf, st.lm, t.pose, st.last_kf_slot, wdrop)
+        self.spans.stamp("advance", "end")
+        return new, None
 
     def _keyframe_body(self, t: _Tracked, img_r):
         """Body K: the keyframe branch, then the advance. Its outputs are
         the keyframe event's slot, words and covisibility row (None
         without a vocabulary)."""
+        self.spans.stamp("keyframe", "start")
         kf, lm, pose, slot, wdrop, event = self._keyframe(t, img_r)
-        return self._advance(t, kf, lm, pose, slot, wdrop), event
+        new = self._advance(t, kf, lm, pose, slot, wdrop)
+        self.spans.stamp("keyframe", "advance")
+        return new, event
 
     def _keyframe(self, t: _Tracked, img_r):
         """The keyframe branch: stereo matching, insertion, eviction,
         culling and window BA. Returns (kf, lm, keyframe pose, last slot,
         window obs dropped, event)."""
         cfg, P, st, res = self.cfg, self.tune, self.state, t.res
+        stamp = functools.partial(self.spans.stamp, "keyframe")
         K = st.kf.frame_id.shape[0]
         if self.feature_fn is not None:
             feats_r = self.feature_fn(img_r)
@@ -428,11 +463,13 @@ class StreamingVO:
                 min_distance=cfg.min_distance,
                 rotate_features=cfg.rotate_features,
                 num_octaves=cfg.num_octaves)
+        stamp("extract_right")
         stereo_j, stereo_inl = kf_mod.stereo_match(
             res.feats, feats_r, st.T_0_1, st.intr0, st.intr1,
             cam_name=self.cam_name, threshold=P["match_max_dist"],
             ratio=P["match_next_best"],
             epipolar_threshold=P["epipolar_error_threshold"])
+        stamp("k2")
         suppress = (res.had_candidate if cfg.suppress_duplicate_landmarks
                     else None)
         out = kf_mod.insert_keyframe(
@@ -440,22 +477,30 @@ class StreamingVO:
             res.feats, feats_r, stereo_j, stereo_inl, res.match_lm,
             res.inlier, st.intr0, st.intr1, cam_name=self.cam_name,
             suppress_new=suppress)
+        stamp("insert")
 
         # window eviction: keep the newest max_num_kfs active pairs
         kf2, lm2 = kf_mod.evict_to_newest(out.kf, out.lm, cfg.max_num_kfs)
         if cfg.enable_lm_culling:
             kf2, lm2 = kf_mod.cull_under_pressure(
                 kf2, lm2, cfg.lm_cull_pressure, cfg.lm_cull_min_obs)
+        stamp("evict_cull")
 
         # synchronous windowed Schur BA; the keyframe pose is post-BA
         wp = ba_window.build_window_problem(
             kf2, lm2, st.intr0, st.intr1, W2=cfg.window_cams // 2,
             Lw=cfg.window_points, O=cfg.window_obs,
             obs_per_lm=cfg.ba_obs_per_lm)
-        poses, points, _ = ba.solve_ba_schur(
+        stamp("ba_build")
+        poses, points, stats = ba.solve_ba_schur(
             wp.prob, cam_name=self.cam_name, huber=P["ba_huber_px"],
             max_iters=cfg.ba_max_iters)
+        # the LM bodies that did work, of the bodies run
+        self.spans.count("lm_live", stats["iterations"])
+        self.spans.count("lm_run", cfg.ba_max_iters)
+        stamp("ba_solve")
         kf3, lm3 = ba_window.merge_window_result(kf2, lm2, wp, poses, points)
+        stamp("ba_merge")
         in_cap = out.slot < K
         s = torch.clamp(out.slot, max=K - 1).to(torch.int64).reshape(1)
         pose_kf = torch.where(in_cap, kf3.pose_l.index_select(0, s)[0],
@@ -524,6 +569,10 @@ class StreamingVO:
         return out
 
     def _step(self, name: str, body, *args):
+        with self.spans.span(_LAUNCH[name]):
+            return self._launch(name, body, args)
+
+    def _launch(self, name: str, body, args):
         if not self.cuda_graphs:
             return self._run_body(body, args)
         g = self._graphs.get(name)
@@ -536,7 +585,9 @@ class StreamingVO:
         if name in self._warmed:   # graphs dropped: capture, then replay
             g = self._graphs[name] = self._capture(name, body, graph_args)
             return self._replay(name, g)
-        out = self._warm_up(body, args)
+        with self.spans.setup("first_run." + name):
+            out = self._warm_up(body, args)
+            torch.cuda.synchronize(self.device)
         self._warmed.add(name)
         self._graphs[name] = self._capture(name, body, graph_args)
         return out
@@ -557,6 +608,8 @@ class StreamingVO:
         capture fails. The capture's kernel launches are counted per
         replay, not here."""
         torch.cuda.synchronize(self.device)
+        if not self.capture_stats:   # the spans' first clock calibration
+            self.spans.calibrate()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
@@ -584,12 +637,14 @@ class StreamingVO:
         return _Graph(graph, out, launches, ptrs)
 
     def _replay(self, name: str, g: _Graph):
-        for path, t in _tensor_fields(self.state).items():
-            if g.ptrs.get(path) != t.data_ptr():
-                raise RuntimeError(
-                    f"the {name} graph was captured with state buffer "
-                    f"{path} at another address: host code replaced the "
-                    f"tensor instead of writing it in place (write_state)")
+        with self.spans.span("replay.check", _LAUNCH[name]):
+            for path, t in _tensor_fields(self.state).items():
+                if g.ptrs.get(path) != t.data_ptr():
+                    raise RuntimeError(
+                        f"the {name} graph was captured with state buffer "
+                        f"{path} at another address: host code replaced "
+                        f"the tensor instead of writing it in place "
+                        f"(write_state)")
         g.graph.replay()
         for k, n in g.launches.items():
             cuda_hamming.LAUNCHES[k] += n
@@ -599,19 +654,26 @@ class StreamingVO:
         """Track one stereo pair (uint8 [H, W] arrays or tensors): body T,
         the keyframe decision read back, then body K or body A (module
         docstring)."""
-        frame = self.state.frame
-        self._frame_dev.fill_(frame)
-        t = self._step("track", self._track, self._input("left", img_l))
-        if self._read(t.do_kf):   # the per-frame host read
-            event = self._step("keyframe", self._keyframe_body, t,
-                               self._input("right", img_r))
-            if event is not None:
-                # the graph rewrites its outputs on the next replay
-                self.events.append(KeyframeEvent(
-                    frame, *(x.clone() for x in event)))
-        else:
-            self._step("advance", self._advance_body, t)
-        self.state = self.state.replace(frame=frame + 1)
+        frame, sp = self.state.frame, self.spans
+        with sp.frame(frame):
+            self._frame_dev.fill_(frame)
+            with sp.span("input.left"):
+                left = self._input("left", img_l)
+            t = self._step("track", self._track, left)
+            with sp.span("read"):
+                do_kf = self._read(t.do_kf)   # the per-frame host read
+            sp.after_read(frame)
+            if do_kf:
+                with sp.span("input.right"):
+                    right = self._input("right", img_r)
+                event = self._step("keyframe", self._keyframe_body, t, right)
+                if event is not None:
+                    # the graph rewrites its outputs on the next replay
+                    self.events.append(KeyframeEvent(
+                        frame, *(x.clone() for x in event)))
+            else:
+                self._step("advance", self._advance_body, t)
+            self.state = self.state.replace(frame=frame + 1)
 
     def run(self, frames):
         """Process [(img_l, img_r)] pairs in order. Returns the count."""
@@ -695,7 +757,7 @@ class StreamingSLAM(StreamingVO):
     def __init__(self, calib: Calibration, config: Optional[SlamConfig],
                  vocabulary, max_frames: int = 8192, poll_every: int = 16,
                  chunk: int = 1, device="cuda", feature_fn=None,
-                 cuda_graphs: Optional[bool] = None):
+                 cuda_graphs: Optional[bool] = None, spans: bool = True):
         if vocabulary is None:
             raise ValueError("StreamingSLAM requires a pretrained "
                              "vocabulary (loop.vocabulary.train)")
@@ -708,7 +770,7 @@ class StreamingSLAM(StreamingVO):
         super().__init__(calib, cfg, max_frames, vocabulary=vocabulary,
                          store_features=cfg.enable_relocalization,
                          device=device, feature_fn=feature_fn,
-                         cuda_graphs=cuda_graphs)
+                         cuda_graphs=cuda_graphs, spans=spans)
         from ..loop.detector import LoopDetector
 
         self.poll_every = poll_every

@@ -73,20 +73,26 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
                 quality_level=0.01, min_distance: int = 8,
                 rotate_features: bool = True, num_octaves: int = 1,
                 generator: torch.Generator = None,
-                feats: Features = None, sample_idx=None) -> TrackResult:
+                feats: Features = None, sample_idx=None,
+                stamp=None) -> TrackResult:
     """Track one left image against the map; ``generator`` drives the
     RANSAC draws, or ``sample_idx`` [H, 6] gives them. ``feats`` overrides
     the built-in extraction with pre-computed Features of the left image (a
     learned frontend's hook). With a leading sequence axis on the image,
     the landmark state, the poses and the velocity (and on ``sample_idx``)
     S sequences are tracked at once (module docstring) and every field of
-    the result leads with S; ``intr0`` is then [S, 8] or a shared [8]."""
+    the result leads with S; ``intr0`` is then [S, 8] or a shared [8].
+    ``stamp`` (a callable taking a stage name, the streaming driver's
+    span hook) is called after each stage: "extract", "project", "k1",
+    "pnp"."""
     if feats is None:
         feats = extract_features(img_l, num_features=num_features,
                                  quality_level=quality_level,
                                  min_distance=min_distance,
                                  rotate_features=rotate_features,
                                  num_octaves=num_octaves)
+    if stamp is not None:
+        stamp("extract")
 
     # per-sequence intrinsics [S, 8] broadcast against [S, L | N] points
     intr = intr0 if intr0.dim() == 1 else intr0.unsqueeze(-2)
@@ -97,6 +103,8 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
     sel, sel_valid = compact_indices(in_view, inview_cap, newest_first=True)
     sel = torch.clamp(sel, 0, lm.pos.shape[-2] - 1)
     sel_valid = sel_valid & take_rows(in_view, sel)
+    if stamp is not None:
+        stamp("project")
 
     # ---- guided landmark matching ----
     match_local, m_ok, had_cand = hamming.match_landmarks(
@@ -108,6 +116,8 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
     match_lm = torch.where(m_ok, take_rows(sel, local),
                            torch.full_like(local, -1))
     num_matches = m_ok.sum(dim=-1)
+    if stamp is not None:
+        stamp("k1")
 
     # ---- PnP localization ----
     bearings = cam_models.unproject(cam_name, intr, feats.corners)
@@ -116,6 +126,8 @@ def track_frame(img_l, lm: LandmarkState, predicted_pose, gate_pose, vel,
         points, bearings, m_ok, pnp_threshold,
         num_hypotheses=num_hypotheses, generator=generator,
         sample_idx=sample_idx)
+    if stamp is not None:
+        stamp("pnp")
     enough = (num_matches >= min_matches) & pnp_valid
     T_w_c = torch.where(enough[..., None], T_ransac, predicted_pose)
     inlier = inlier & enough[..., None] & m_ok

@@ -1,18 +1,17 @@
-"""Structured per-frame metrics + stage timing.
+"""Stage timing.
 
 The reference's observability is std::cout prose + Ceres reports + GUI
-overlays (SURVEY.md section 5); here every frame emits a structured record
-(JSONL) and hot stages are timed with a lightweight scoped timer whose
-summaries surface in the run log.
+overlays (SURVEY.md section 5); here hot stages are timed with a
+lightweight scoped timer whose summaries surface in the run log (the
+command line writes its per-frame JSONL records itself).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict
 
 
 class StageTimer:
@@ -39,20 +38,3 @@ class StageTimer:
                                  3)}
             for k in sorted(self.total)
         }
-
-
-class MetricsLogger:
-    """JSONL writer for per-frame records; no-op when path is None."""
-
-    def __init__(self, path: Optional[str] = None):
-        self._f = open(path, "w") if path else None
-
-    def log(self, record: dict) -> None:
-        if self._f:
-            self._f.write(json.dumps(record) + "\n")
-            self._f.flush()
-
-    def close(self) -> None:
-        if self._f:
-            self._f.close()
-            self._f = None
