@@ -21,7 +21,11 @@ poses within 1e-3). ``StreamingVO`` replaying its step as CUDA graphs
 makes the eager step's keyframes, tracked flags and trajectory (within
 1e-4 m, deterministic mode), and counts the kernels' launches across
 replays; its stage stamps change no pose and no launch count, stamp in
-order inside each replay, and add no graph launch.
+order inside each replay, and add no graph launch. The window BA's LM
+bodies captured behind IF nodes give the masked loop's bits, eager and
+captured, in deterministic mode, on every exit (first body, mid-way,
+stuck, ``max_iters``); one graph replays another problem written into its
+buffers; and a replay launches only the live bodies' kernels.
 """
 
 import os
@@ -658,3 +662,215 @@ def _profiled_frames(vo, seq):
         vo.run(seq.images[2:6])
         torch.cuda.synchronize()
     return [e.name for e in prof.events()]
+
+
+# ---------------------------------------------------------------------------
+# the window BA's LM bodies behind IF nodes
+# ---------------------------------------------------------------------------
+
+def _ba_problem(dev, seed, noise=0.5, perturb=True, K=8, L=240, per_pt=3):
+    """A pinhole BA problem: K cameras along a line (the first two fixed),
+    L points each seen by ``per_pt`` of them, ``noise`` px on the
+    observations, and starts perturbed from the truth (or the truth)."""
+    from vslam_tpu_torch.geometry import lie
+    from vslam_tpu_torch.solvers import ba as tba
+
+    rng = np.random.default_rng(seed)
+    intr = np.array([220.0, 220.0, 376.0, 240.0, 0, 0, 0, 0], np.float32)
+    t = np.stack([np.linspace(0, 1.0, K), 0.05 * np.sin(np.arange(K)),
+                  np.zeros(K)], -1)
+    truth = np.concatenate([t, np.tile([0, 0, 0, 1.0], (K, 1))],
+                           -1).astype(np.float32)
+    pts = rng.uniform([-3, -2, 4], [4, 2, 10], (L, 3)).astype(np.float32)
+    obs_cam = np.stack([rng.choice(K, per_pt, replace=False)
+                        for _ in range(L)]).reshape(-1)
+    obs_pt = np.repeat(np.arange(L), per_pt)
+    pc = pts[obs_pt] - truth[obs_cam, :3]
+    uv = intr[:2] * pc[:, :2] / pc[:, 2:] + intr[2:4]
+    uv = uv + rng.normal(0, noise, uv.shape)
+    poses = torch.as_tensor(truth)
+    if perturb:
+        d = rng.normal(0, 0.02, (K, 6)).astype(np.float32)
+        d[:2] = 0
+        poses = lie.se3_retract(poses, torch.as_tensor(d))
+        pts = pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)
+    return tba.BAProblem(
+        poses=poses.to(dev), pose_fixed=torch.arange(K, device=dev) < 2,
+        intr=torch.as_tensor(np.tile(intr, (K, 1)), device=dev),
+        points=torch.as_tensor(pts, device=dev),
+        point_valid=torch.ones(L, dtype=torch.bool, device=dev),
+        obs_cam=torch.as_tensor(obs_cam, dtype=torch.int32, device=dev),
+        obs_point=torch.as_tensor(obs_pt, dtype=torch.int32, device=dev),
+        obs_uv=torch.as_tensor(uv, dtype=torch.float32, device=dev),
+        obs_valid=torch.ones(len(obs_cam), dtype=torch.bool, device=dev))
+
+
+def _write_problem(dst, src):
+    for name in ("poses", "pose_fixed", "intr", "points", "point_valid",
+                 "obs_cam", "obs_point", "obs_uv", "obs_valid"):
+        getattr(dst, name).copy_(getattr(src, name))
+
+
+def _solve_graph(prob, monkeypatch, masked=False, **kw):
+    """``solve_ba_schur`` on ``prob``'s buffers: a warm-up on a side
+    stream, then a capture (the masked loop with ``masked``, the stream
+    seen as not capturing). Returns the graph and its outputs."""
+    from vslam_tpu_torch.solvers import ba as tba
+
+    kw = dict(cam_name="pinhole", huber=1.0, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tba.solve_ba_schur(prob, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with monkeypatch.context() as mp:
+        if masked:
+            mp.setattr(torch.cuda, "is_current_stream_capturing",
+                       lambda: False)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = tba.solve_ba_schur(prob, **kw)
+    return graph, out
+
+
+def _replayed(graph, out):
+    graph.replay()
+    torch.cuda.synchronize()
+    p, x, s = out
+    return (p.clone(), x.clone(), s["final_cost"].clone(),
+            s["lambda"].clone(), s["iterations"].clone())
+
+
+def _eager(prob, **kw):
+    from vslam_tpu_torch.solvers import ba as tba
+
+    p, x, s = tba.solve_ba_schur(prob, cam_name="pinhole", huber=1.0, **kw)
+    return p, x, s["final_cost"], s["lambda"], s["iterations"]
+
+
+def _assert_bits(got, want):
+    for name, a, b in zip(("poses", "points", "cost", "lambda", "iters"),
+                          got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+# (problem seed or "truth", solver keywords): the exit each case takes
+BA_EXITS = {
+    "first_body": ("truth", {}),                 # gradient exit in body 1
+    "mid_way": (1, {}),                          # function tolerance
+    "stuck": (1, {"step_cap": 0.0}),             # every step refused
+    "max_iters": (1, {"max_iters": 3}),          # no exit in 3 bodies
+}
+
+
+def _exit_problem(dev, which):
+    seed, kw = BA_EXITS[which]
+    if seed == "truth":
+        return _ba_problem(dev, 9, noise=0.0, perturb=False), kw
+    return _ba_problem(dev, seed), kw
+
+
+@pytest.mark.parametrize("which", list(BA_EXITS))
+def test_lm_if_bodies_equal_the_masked_loop(dev, deterministic, monkeypatch,
+                                            which):
+    """Captured inside a CUDA graph, ``solve_ba_schur`` puts each LM body
+    behind an IF node on ``not done``: in deterministic mode its replay
+    gives the eager masked loop's bits, and the masked loop's captured in
+    a graph, on problems that exit in the first body, mid-way, on the
+    stuck exit, and only at ``max_iters``."""
+    prob, kw = _exit_problem(dev, which)
+    want = _eager(prob, **kw)
+    iters = int(want[4])
+    max_iters = kw.get("max_iters", 20)
+    if which == "first_body":
+        assert iters == 1
+    elif which == "max_iters":
+        assert iters == max_iters
+    else:
+        assert 1 < iters < max_iters
+    if which == "stuck":
+        assert float(want[3]) == 1e8
+    g_if, out_if = _solve_graph(prob, monkeypatch, **kw)
+    g_mask, out_mask = _solve_graph(prob, monkeypatch, masked=True, **kw)
+    _assert_bits(_replayed(g_if, out_if), want)
+    _assert_bits(_replayed(g_mask, out_mask), want)
+
+
+def test_lm_if_graph_replays_another_problem_in_its_buffers(
+        dev, deterministic, monkeypatch):
+    """One graph, captured on a problem that runs several bodies, replayed
+    on another written into the same input buffers (one body: the rest
+    skipped), then on the first again: each replay gives that problem's
+    eager bits, so a skipped body leaves nothing stale behind."""
+    noisy = _ba_problem(dev, 1)
+    truth = _ba_problem(dev, 9, noise=0.0, perturb=False)
+    want = {"noisy": _eager(noisy), "truth": _eager(truth)}
+    assert int(want["noisy"][4]) > 1 and int(want["truth"][4]) == 1
+    buf = _ba_problem(dev, 1)
+    graph, out = _solve_graph(buf, monkeypatch)
+    for name, src in (("noisy", noisy), ("truth", truth), ("noisy", noisy)):
+        _write_problem(buf, src)
+        _assert_bits(_replayed(graph, out), want[name])
+
+
+def test_lm_if_bodies_skip_kernels(dev, monkeypatch):
+    """A replay runs the live bodies only. A kernel captured into every
+    body counts the bodies each replay ran: the problem's iterations
+    behind IF nodes, all 20 in the masked loop. Profiled replays launch
+    fewer kernels for a problem that exits in the first body than for one
+    that runs several, and fewer for that than for the masked loop (each
+    the most of three profiled replays: on the card a profiler session
+    can drop most of a replay's kernel events, never add any)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vslam_tpu_torch.solvers import ba as tba
+
+    ran = torch.zeros((), dtype=torch.int32, device=dev)
+    body = tba.lm_body
+
+    def counted(*args):
+        ran.add_(1)
+        body(*args)
+
+    monkeypatch.setattr(tba, "lm_body", counted)
+
+    def replay(graph):
+        ran.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        return int(ran)
+
+    def kernels(graph):
+        counts = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            counts.append(sum(
+                e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events()))
+        return max(counts)
+
+    noisy = _ba_problem(dev, 1)
+    truth = _ba_problem(dev, 9, noise=0.0, perturb=False)
+    buf = _ba_problem(dev, 1)
+    g_if, out = _solve_graph(buf, monkeypatch)
+    g_mask, _ = _solve_graph(buf, monkeypatch, masked=True)
+    _write_problem(buf, noisy)
+    iters = int(_eager(noisy)[4])
+    assert 1 < iters < 20
+    assert replay(g_if) == iters == int(out[2]["iterations"])
+    assert replay(g_mask) == 20
+    n_noisy, n_mask = kernels(g_if), kernels(g_mask)
+    _write_problem(buf, truth)
+    assert replay(g_if) == 1 == int(out[2]["iterations"])
+    n_truth = kernels(g_if)
+    assert 0 < n_truth < n_noisy < n_mask

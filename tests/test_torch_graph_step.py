@@ -14,7 +14,10 @@ step there). Here:
   float32 sums taken in another order), the iteration count within one
   (the exit tests compare float32 reductions with the tolerances); and
   against the port's own host early exit, bit for bit and to the same
-  count (the masked bodies change nothing once ``done`` is set);
+  count (the masked bodies change nothing once ``done`` is set); its one
+  body writes the carried state in place, buffers at fixed addresses
+  (the card's IF bodies rely on it: ``tests/test_torch_cuda.py``), and a
+  CPU problem runs the masked loop whatever is being captured;
 - the masked keyframe insert against JAX below the keyframe capacity and
   past it (``slot >= Kcap``), and the on-device culling choice against
   JAX's ``lax.cond`` above and below the pressure: integers equal, floats
@@ -31,6 +34,7 @@ step there). Here:
 """
 
 import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -203,6 +207,66 @@ def test_masked_lm_loop_intrinsics_matches_jax():
     for a, b in ((pe, pt), (xe, xt), (ie, it),
                  (se["final_cost"], st["final_cost"])):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("seed,cam,pad", CASES)
+def test_lm_body_writes_the_carried_state_in_place(seed, cam, pad):
+    """``lm_body``, the one LM body both of ``solve_ba_schur``'s loops run,
+    writes the carried state in place: every buffer stays at its address
+    from body to body and the problem is left as it was. Thirty bodies of
+    it give the solver's bits and count, and a body after the exit changes
+    nothing."""
+    arrays = golden_problem(seed, cam, pad=pad)
+    prob = interop.from_arrays(tba.BAProblem, arrays, "cpu")
+    carry = tba.lm_carry(prob, cam, 1.0, 1e-4)
+    fields = [f.name for f in dataclasses.fields(carry)]
+    ptrs = {n: getattr(carry, n).data_ptr() for n in fields}
+    with no_host_read():
+        for _ in range(30):
+            tba.lm_body(prob, carry, cam, 1.0, 10.0)
+            assert {n: getattr(carry, n).data_ptr() for n in fields} == ptrs
+    assert bool(carry.done)
+    np.testing.assert_array_equal(prob.poses.numpy(), arrays["poses"])
+    np.testing.assert_array_equal(prob.points.numpy(), arrays["points"])
+    pt, xt, st = tba.solve_ba_schur(prob, cam_name=cam, huber=1.0,
+                                    max_iters=30)
+    for a, b in ((carry.poses, pt), (carry.points, xt),
+                 (carry.cost, st["final_cost"]), (carry.lam, st["lambda"]),
+                 (carry.iters, st["iterations"])):
+        assert torch.equal(a, b)
+    before = {n: getattr(carry, n).clone() for n in fields}
+    tba.lm_body(prob, carry, cam, 1.0, 10.0)
+    for n in fields:
+        assert torch.equal(getattr(carry, n), before[n]), n
+
+
+def test_lm_loop_on_the_cpu_is_masked_whatever_is_captured(monkeypatch):
+    """The IF bodies are chosen only for a problem on the card whose stream
+    is being captured: a CPU problem runs the masked loop even while some
+    capture is underway, and an IF node refuses a predicate that is not a
+    0-dim bool on the card."""
+    from vslam_tpu_torch.ops import cuda_graphs
+
+    arrays = golden_problem(1, "pinhole")
+    prob = interop.from_arrays(tba.BAProblem, arrays, "cpu")
+    want = tba.solve_ba_schur(prob, cam_name="pinhole", max_iters=30)
+
+    def no_if_node(pred):
+        raise AssertionError("an IF node for a CPU problem")
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    monkeypatch.setattr(cuda_graphs, "if_node", no_if_node)
+    got = tba.solve_ba_schur(prob, cam_name="pinhole", max_iters=30)
+    for a, b in ((got[0], want[0]), (got[1], want[1]),
+                 (got[2]["iterations"], want[2]["iterations"])):
+        assert torch.equal(a, b)
+    monkeypatch.undo()
+    for pred in (torch.ones((), dtype=torch.bool),
+                 torch.ones(1, dtype=torch.bool)):
+        with pytest.raises(ValueError, match="0-dim bool CUDA"):
+            with cuda_graphs.if_node(pred):
+                pass
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Build, load and launch the Hamming top-2 CUDA kernels.
 
 ``csrc/hamming_top2.cu`` (with ``csrc/stamp.cu``, the driver's stage
-stamps, launched from ``ops/cuda_stamp.py``) is compiled at first use with
+stamps, launched from ``ops/cuda_stamp.py``, and ``csrc/graph_if.cu``, the
+CUDA-graph IF nodes of ``ops/cuda_graphs.py``) is compiled at first use with
 ``nvcc`` for ``sm_90a`` into ``build/vslam_tpu_torch/libhamming.so``
 (beside the repository's packages), a shared library with a plain C
 interface that is loaded with ``ctypes``. The build is keyed on a hash of
@@ -41,7 +42,7 @@ LAUNCHES = {"landmark_top2": 0, "hamming_top2": 0}
 LOADED = None   # (start, end) ns of the library's first load
 
 SOURCES = tuple(Path(__file__).resolve().parents[1] / "csrc" / name
-                for name in ("hamming_top2.cu", "stamp.cu"))
+                for name in ("hamming_top2.cu", "stamp.cu", "graph_if.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vslam_tpu_torch"
 LIBRARY = BUILD_DIR / "libhamming.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -113,6 +114,12 @@ def _load():
             lib.vslam_mapped_pointer.argtypes = [vp,
                                                  ctypes.POINTER(vp)]
             lib.vslam_mapped_pointer.restype = ci
+            lib.vslam_if_begin.argtypes = [vp, vp, vp]
+            lib.vslam_if_begin.restype = ci
+            lib.vslam_if_end.argtypes = [vp]
+            lib.vslam_if_end.restype = ci
+            lib.vslam_stream_create.argtypes = [ctypes.POINTER(vp)]
+            lib.vslam_stream_create.restype = ci
             _lib = lib
             LOADED = (t0, time.perf_counter_ns())
     return _lib

@@ -51,8 +51,11 @@ same generator state draws. The Hamming kernels' launch counts
 replay. The device-tunable gate scalars (``config.DEVICE_TUNABLE``) are
 plain Python floats rounded to float32, the precision the reference
 carries them in; a graph holds them as captured, so ``set_param`` drops
-the graphs and the next frame captures them anew. On the CPU (and with
-``cuda_graphs=False``) the same bodies run eagerly.
+the graphs and the next frame captures them anew. The graphs of a set
+share one memory pool, which the set's first capture makes: they replay
+one at a time, body T's outputs stay allocated while K and A read them,
+and K's outputs are copied out before the next frame replays T. On the
+CPU (and with ``cuda_graphs=False``) the same bodies run eagerly.
 
 RANSAC draws come from an explicit ``torch.Generator`` seeded from
 ``config.seed`` (torch cannot reproduce ``jax.random``'s bits).
@@ -79,7 +82,7 @@ from ..frontend.features import extract_features
 from ..geometry import lie
 from ..io.calib import Calibration
 from ..loop import vocabulary as vocab_mod
-from ..ops import cuda_hamming
+from ..ops import cuda_graphs, cuda_hamming
 from ..ops.compact import masked_put_
 from ..solvers import ba, pnp
 from ..utils import profiling
@@ -197,7 +200,7 @@ class StreamingVO:
     raises (the learned frontend's step is not captured yet). A capture
     that fails raises; nothing falls back to the eager step.
     ``capture_stats`` holds each capture's seconds and the device memory
-    it reserved for its graph's pool.
+    the pool grew by in it.
 
     ``spans`` (on by default) records the per-frame spans and counters
     (module docstring) in ``self.spans``; ``False`` takes no stamp at all
@@ -229,7 +232,6 @@ class StreamingVO:
         self.spans = (profiling.SpanRecorder(max_frames, self.device)
                       if spans else profiling.NO_SPANS)
         if self.device.type == "cuda":
-            self._side_stream = torch.cuda.Stream(self.device)
             self._flag_host = torch.zeros((), dtype=torch.bool,
                                           pin_memory=True)
             self._flag_event = torch.cuda.Event()
@@ -495,7 +497,8 @@ class StreamingVO:
         poses, points, stats = ba.solve_ba_schur(
             wp.prob, cam_name=self.cam_name, huber=P["ba_huber_px"],
             max_iters=cfg.ba_max_iters)
-        # the LM bodies that did work, of the bodies run
+        # the LM bodies that did work, of the bodies captured (a replay
+        # skips the others)
         self.spans.count("lm_live", stats["iterations"])
         self.spans.count("lm_run", cfg.ba_max_iters)
         stamp("ba_solve")
@@ -597,10 +600,13 @@ class StreamingVO:
         ``torch.cuda.graphs`` prescribes before a capture), doing the
         frame's work."""
         cur = torch.cuda.current_stream(self.device)
-        self._side_stream.wait_stream(cur)
-        with torch.cuda.stream(self._side_stream):
+        # the stream the window BA's IF bodies are captured on: its cuBLAS
+        # workspace is then made here, outside the graphs' pools
+        side = cuda_graphs.side_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
             out = self._run_body(body, args)
-        cur.wait_stream(self._side_stream)
+        cur.wait_stream(side)
         return out
 
     def _capture(self, name: str, body, args) -> _Graph:
@@ -611,6 +617,8 @@ class StreamingVO:
         if not self.capture_stats:   # the spans' first clock calibration
             self.spans.calibrate()
         torch.cuda.empty_cache()
+        if not self._graphs:   # the first graph of a set makes its pool
+            self._pool = torch.cuda.graph_pool_handle()
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
@@ -620,7 +628,8 @@ class StreamingVO:
         try:
             # thread_local: other threads (an image decoder, say) may use
             # the card while the step is captured
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
                 out = self._run_body(body, args)
         except Exception as e:
             raise RuntimeError(f"capture of the step's {name} body failed "

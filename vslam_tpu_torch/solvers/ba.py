@@ -21,13 +21,23 @@ so the summation order, and the last bits, vary from run to run).
 
 The reference's ``lax.while_loop`` runs on the device: its body repeats
 until the function tolerance, the gradient tolerance or the stuck exit
-holds, or ``max_iters`` bodies have run. Here the loop runs ``max_iters``
-bodies and a device flag ``done``, set after the body in which an exit
-first holds, masks every later body's update of the poses, points,
-damping and cost, and the iteration count: the same results, with no host
-read, so a CUDA graph can hold the solve. ``early_exit=True`` adds a host
-read of ``done`` after each body and stops there, for eager callers that
-would rather not pay for the masked bodies; the results are the same bits.
+holds, or ``max_iters`` bodies have run. Here one LM body (``lm_body``)
+reads the loop's state from buffers allocated before the first body
+(``LMCarry``: poses, points, cost, damping, iteration count and a device
+flag ``done``, set after the body in which an exit first holds) and writes
+it back in place; once ``done`` is set a body changes nothing. There are
+two loops over it, chosen by whether the card's current stream is being
+captured into a CUDA graph:
+
+- eager (the CPU, and the card outside a capture): ``max_iters`` bodies,
+  the later ones masked by ``done``; ``early_exit=True`` adds a host read
+  of ``done`` after each body and stops there, for eager callers that
+  would rather not pay for the masked bodies. The results are the same
+  bits either way.
+- inside a capture: each of the ``max_iters`` bodies behind a conditional
+  IF node on ``not done`` (``ops/cuda_graphs.if_node``), so a replay
+  skips the bodies after the exit on the device, with no host read and
+  the same bits as the masked loop.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 from ..core.state import TensorState
 from ..geometry import cameras as cam_models
 from ..geometry import lie
+from ..ops import cuda_graphs
 
 
 @dataclasses.dataclass
@@ -56,6 +67,8 @@ class BAProblem(TensorState):
     obs_valid: torch.Tensor    # [O] bool
 
 
+FTOL = 1e-6   # LM function tolerance (Ceres-style)
+GTOL = 0.05   # LM relative gradient tolerance
 RESIDUAL_CLIP = 1e5  # px; observations behind a camera can otherwise
 # produce ~1/z^2 residuals whose f32 square overflows to inf, and
 # inf * 0-weight = NaN poisons the normal equations.
@@ -140,6 +153,12 @@ def _robust_cost(r, valid, huber):
     nrm = torch.sqrt(torch.clamp(s, min=0.0))
     rho = torch.where(nrm <= huber, s, 2.0 * huber * nrm - huber * huber)
     return torch.sum(torch.where(valid, rho, torch.zeros_like(rho)))
+
+
+def _cost(cam_name, prob: BAProblem, poses, points, huber):
+    """The robust cost of ``prob`` at poses, points."""
+    return _robust_cost(_residuals(cam_name, prob, poses, points),
+                        prob.obs_valid, huber)
 
 
 def _normal_equations(cam_name, prob: BAProblem, poses, points, huber):
@@ -232,6 +251,80 @@ def _lm_gain_update(cost, new_cost, lam, nu, pred, step_inf,
             torch.clamp(nu_new, max=64.0))
 
 
+@dataclasses.dataclass
+class LMCarry(TensorState):
+    """The LM loop's state, carried from body to body in these buffers:
+    each body writes them in place (``lm_body``)."""
+
+    poses: torch.Tensor   # [K, 7]
+    points: torch.Tensor  # [L, 3]
+    cost: torch.Tensor    # [] robust cost at poses, points
+    lam: torch.Tensor     # [] damping
+    nu: torch.Tensor      # [] damping growth factor
+    iters: torch.Tensor   # [] int32 bodies that did work
+    done: torch.Tensor    # [] bool an exit has held
+
+
+def lm_carry(prob: BAProblem, cam_name: str, huber,
+             lam0: float) -> LMCarry:
+    """The LM loop's state before its first body: ``prob``'s poses and
+    points (copied) and their cost, damping ``lam0``."""
+    dtype, dev = prob.poses.dtype, prob.poses.device
+    return LMCarry(
+        poses=prob.poses.clone(), points=prob.points.clone(),
+        cost=_cost(cam_name, prob, prob.poses, prob.points, huber),
+        lam=torch.full((), lam0, dtype=dtype, device=dev),
+        nu=torch.full((), 2.0, dtype=dtype, device=dev),
+        iters=torch.zeros((), dtype=torch.int32, device=dev),
+        done=torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def lm_body(prob: BAProblem, carry: LMCarry, cam_name: str, huber,
+            step_cap: float):
+    """One LM body of ``solve_ba_schur``, written into ``carry`` in place.
+    Its updates hold while ``carry.done`` is unset: the body in which an
+    exit first holds applies them, a body after it changes nothing."""
+    dtype = prob.poses.dtype
+    free_c = (~prob.pose_fixed)[:, None].to(dtype)
+    free_p = prob.point_valid[:, None].to(dtype)
+    poses, points, cost, lam = carry.poses, carry.points, carry.cost, carry.lam
+    Hcc, Hpp, U, bc, bp, _ = _normal_equations(cam_name, prob, poses, points,
+                                               huber)
+    # gradient termination: at a (local) optimum every step is rejected,
+    # so exit instead of ratcheting lambda up to the limit
+    g_inf = torch.maximum(torch.max(torch.abs(bc) * free_c),
+                          torch.max(torch.abs(bp) * free_p))
+    done_grad = g_inf <= GTOL * (1.0 + cost)
+    dc, dp = _schur_solve(Hcc, Hpp, U, bc, bp, prob.pose_fixed,
+                          prob.point_valid, lam)
+    new_poses = torch.where(prob.pose_fixed[:, None], poses,
+                            lie.se3_retract(poses, dc))
+    new_points = points + dp
+    new_cost = _cost(cam_name, prob, new_poses, new_points, huber)
+    # gain ratio vs the damped model: pred = 0.5*(lam*||d||^2 - b.d)
+    dcf = dc * free_c
+    dpf = dp * free_p
+    d_sq = torch.sum(dcf * dcf) + torch.sum(dpf * dpf)
+    b_dot = torch.sum(bc * dcf) + torch.sum(bp * dpf)
+    pred = 0.5 * (lam * d_sq - b_dot)
+    step_inf = torch.max(torch.abs(dcf))
+    accept, converged, lam_new, nu_new = _lm_gain_update(
+        cost, new_cost, lam, carry.nu, pred, step_inf, step_cap, FTOL)
+    live = ~carry.done
+    take = accept & live
+    # a rejected step with huge lambda means we are stuck
+    stuck = ~accept & (lam_new >= 1e8)
+    updates = ((poses, torch.where(take, new_poses, poses)),
+               (points, torch.where(take, new_points, points)),
+               (cost, torch.where(take, new_cost, cost)),
+               (lam, torch.where(live, lam_new, lam)),
+               (carry.nu, torch.where(live, nu_new, carry.nu)),
+               (carry.iters, carry.iters + live.to(torch.int32)),
+               (carry.done, carry.done | converged | stuck | done_grad))
+    for buf, value in updates:
+        buf.copy_(value)
+
+
 def solve_ba_schur(prob: BAProblem, cam_name: str = "ds", huber=1.0,
                    max_iters: int = 20, lam0: float = 1e-4,
                    step_cap: float = 10.0, early_exit: bool = False):
@@ -241,62 +334,29 @@ def solve_ba_schur(prob: BAProblem, cam_name: str = "ds", huber=1.0,
     iteration count: a 0-dim int32 tensor, or an int with
     ``early_exit=True``, module docstring).
     """
-    ftol = 1e-6   # Ceres-style function tolerance
-    gtol = 0.05   # relative gradient tolerance
+    carry = lm_carry(prob, cam_name, huber, lam0)
+    init_cost = carry.cost.clone()
 
-    def cost_of(poses, points):
-        return _robust_cost(_residuals(cam_name, prob, poses, points),
-                            prob.obs_valid, huber)
+    def body():
+        lm_body(prob, carry, cam_name, huber, step_cap)
 
-    dtype, dev = prob.poses.dtype, prob.poses.device
-    free_c = (~prob.pose_fixed)[:, None].to(dtype)
-    free_p = prob.point_valid[:, None].to(dtype)
-    fixed = prob.pose_fixed[:, None]
-    poses, points = prob.poses, prob.points
-    lam = torch.full((), lam0, dtype=dtype, device=dev)
-    nu = torch.full((), 2.0, dtype=dtype, device=dev)
-    init_cost = cost = cost_of(poses, points)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(max_iters):
-        Hcc, Hpp, U, bc, bp, _ = _normal_equations(cam_name, prob, poses,
-                                                   points, huber)
-        # gradient termination: at a (local) optimum every step is
-        # rejected, so exit instead of ratcheting lambda up to the limit
-        g_inf = torch.maximum(torch.max(torch.abs(bc) * free_c),
-                              torch.max(torch.abs(bp) * free_p))
-        done_grad = g_inf <= gtol * (1.0 + cost)
-        dc, dp = _schur_solve(Hcc, Hpp, U, bc, bp, prob.pose_fixed,
-                              prob.point_valid, lam)
-        new_poses = torch.where(fixed, poses, lie.se3_retract(poses, dc))
-        new_points = points + dp
-        new_cost = cost_of(new_poses, new_points)
-        # gain ratio vs the damped model: pred = 0.5*(lam*||d||^2 - b.d)
-        dcf = dc * free_c
-        dpf = dp * free_p
-        d_sq = torch.sum(dcf * dcf) + torch.sum(dpf * dpf)
-        b_dot = torch.sum(bc * dcf) + torch.sum(bp * dpf)
-        pred = 0.5 * (lam * d_sq - b_dot)
-        step_inf = torch.max(torch.abs(dcf))
-        accept, converged, lam_new, nu_new = _lm_gain_update(
-            cost, new_cost, lam, nu, pred, step_inf, step_cap, ftol)
-        # the body's updates hold until the body in which an exit held
-        live = ~done
-        take = accept & live
-        poses = torch.where(take, new_poses, poses)
-        points = torch.where(take, new_points, points)
-        cost = torch.where(take, new_cost, cost)
-        lam = torch.where(live, lam_new, lam)
-        nu = torch.where(live, nu_new, nu)
-        iters = iters + live.to(torch.int32)
-        # a rejected step with huge lambda means we are stuck
-        stuck = ~accept & (lam_new >= 1e8)
-        done = done | converged | stuck | done_grad
-        if early_exit and bool(done):
-            break
-    stats = {"initial_cost": init_cost, "final_cost": cost, "lambda": lam,
-             "iterations": int(iters) if early_exit else iters}
-    return poses, points, stats
+    if prob.poses.is_cuda and torch.cuda.is_current_stream_capturing():
+        # inside a CUDA-graph capture: each body behind an IF node on the
+        # flag that no exit has held yet
+        live = torch.empty_like(carry.done)
+        for _ in range(max_iters):
+            torch.logical_not(carry.done, out=live)
+            with cuda_graphs.if_node(live):
+                body()
+    else:
+        for _ in range(max_iters):
+            body()
+            if early_exit and bool(carry.done):
+                break
+    stats = {"initial_cost": init_cost, "final_cost": carry.cost,
+             "lambda": carry.lam,
+             "iterations": int(carry.iters) if early_exit else carry.iters}
+    return carry.poses, carry.points, stats
 
 
 def _obs_residual_jac_intr(cam_name, prob: BAProblem, poses, points, intr2):
@@ -423,8 +483,9 @@ def solve_ba_schur_intrinsics(prob: BAProblem, cam_name: str = "ds",
     blocks (the reference's BundleAdjustmentOptions.optimize_intrinsics).
     ``prob.intr`` rows 0 and 1 give the starting left / right intrinsics.
 
-    Returns (poses [K,7], points [L,3], intr2 [2,8], stats). The same
-    masked loop, exits and ``early_exit`` as ``solve_ba_schur``.
+    Returns (poses [K,7], points [L,3], intr2 [2,8], stats). The masked
+    loop, exits and ``early_exit`` of ``solve_ba_schur``'s eager loop (in
+    a capture too: no IF nodes).
     """
     ftol, gtol, step_cap = 1e-6, 0.05, 10.0
     cam2 = prob.obs_cam.long() % 2

@@ -163,7 +163,8 @@ BODY_STAGES = {
     "advance": ("start", "end"),
 }
 # counters body K writes per keyframe: the window BA's LM bodies that did
-# work (``solve_ba_schur``'s iterations) and the bodies run
+# work (``solve_ba_schur``'s iterations, the bodies a replay runs) and the
+# bodies captured (``ba_max_iters``; a replay skips the rest)
 COUNTERS = ("lm_live", "lm_run")
 # host spans of ``process_frame``: (name, parent)
 HOST_SPANS = (
