@@ -15,7 +15,9 @@ guided matching at P = 1024) and the faithful driver's (``SlamSystem``'s
 tracking and stereo matching, the closed-form closure's harvest). The
 landmark top-2 with a leading sequence axis equals its plain version and,
 bit for bit, one launch per sequence; ``MultiSeqVO`` tracks every sequence
-of a lockstep frame in one launch of it. The matrix-free bundle
+of a lockstep frame in one launch of it, and replaying its lockstep bodies
+as CUDA graphs makes the eager driver's keyframes, service order and
+trajectories at S = 8 with one blocking read a frame. The matrix-free bundle
 adjustment on the card equals its CPU run (costs within 1e-3 relative,
 poses within 1e-3). ``StreamingVO`` replaying its step as CUDA graphs
 makes the eager step's keyframes, tracked flags and trajectory (within
@@ -498,6 +500,88 @@ def test_multiseq_vo_step_launches_one_kernel_per_lockstep_frame(dev):
         assert int(vo.lm.valid[s].sum()) > 50
 
 
+def _lockstep_run(dev, cuda_graphs, S=8, frames=14):
+    """``MultiSeqVO`` over S small worlds at different speeds (every
+    sequence's insert and window-BA bodies run in the first S frames);
+    returns it, its logs, the service order and the kernels' launches."""
+    from vslam_tpu_torch.parallel.multiseq_runner import MultiSeqVO
+
+    worlds = [synthetic.generate(num_frames=24, num_points=500,
+                                 seed=3 + 8 * s, speed=0.7 + 0.1 * s)
+              for s in range(S)]
+    vo = MultiSeqVO(worlds[0].calib, S, _small_vo_config(), max_frames=16,
+                    device=dev, cuda_graphs=cuda_graphs)
+    before = dict(cuda_hamming.LAUNCHES)
+    vo.run([(np.stack([w.images[f][0] for w in worlds]),
+             np.stack([w.images[f][1] for w in worlds]))
+            for f in range(frames)])
+    torch.cuda.synchronize()
+    launches = {k: cuda_hamming.LAUNCHES[k] - before[k] for k in before}
+    served = [(tuple(np.flatnonzero(i.inserted)), i.ba_seq)
+              for i in vo.infos]
+    return vo, vo.results(), served, launches, worlds
+
+
+def test_graphed_multiseq_vo_matches_eager(dev):
+    """``MultiSeqVO`` replaying its lockstep bodies as CUDA graphs (the
+    default on the card) against ``cuda_graphs=False`` at S = 8, in
+    deterministic mode: the same keyframes, tracked flags and service
+    order, the trajectories within 1e-4 m; one tracking, one advance and
+    one insert and one window-BA graph per sequence, captured in the
+    first S frames; the landmark top-2 once per lockstep frame and the
+    descriptor top-2 twice per keyframe, as eagerly."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        g_vo, g, g_served, g_launch, _ = _lockstep_run(dev, None)
+        _, e, e_served, e_launch, _ = _lockstep_run(dev, False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    S = 8
+    assert g_vo.cuda_graphs and set(g_vo._graphs) == (
+        {"lockstep_track", "lockstep_advance"}
+        | {f"lockstep_{b}.{s}" for b in ("insert", "ba") for s in range(S)})
+    assert g_served == e_served and g_served[:S] == [
+        ((s,), s) for s in range(S)]
+    assert (g["is_keyframe"] == e["is_keyframe"]).all()
+    assert (g["tracked_ok"] == e["tracked_ok"]).all()
+    assert g["tracked_ok"][:, S:].all()
+    assert np.abs(g["trajectories"] - e["trajectories"]).max() <= 1e-4
+    n_kf = int(g["is_keyframe"].sum())
+    assert g_launch == e_launch == {"landmark_top2": 14,
+                                    "hamming_top2": 2 * n_kf}
+    assert g_vo._graphs["lockstep_track"].launches == {
+        "landmark_top2": 1, "hamming_top2": 0}
+    assert g_vo._graphs["lockstep_insert.3"].launches == {
+        "landmark_top2": 0, "hamming_top2": 2}
+
+
+def test_graphed_multiseq_vo_reads_once_and_guards_buffers(dev):
+    """A replayed lockstep frame blocks the host once (the request
+    vectors' event) and synchronizes nothing else; its spans hold every
+    replayed body; a state buffer replaced instead of written in place
+    makes the next replay raise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vo, _, _, _, worlds = _lockstep_run(dev, None, S=4, frames=8)
+    frames = [(np.stack([w.images[f][0] for w in worlds]),
+               np.stack([w.images[f][1] for w in worlds]))
+              for f in range(8, 12)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        vo.run(frames)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert names.count("cudaEventSynchronize") == 4
+    assert "cudaStreamSynchronize" not in names
+    assert names.count("cudaDeviceSynchronize") == 1   # the test's own
+    assert 8 <= names.count("cudaGraphLaunch") <= 16
+    got = vo.spans.read(8, 12)["spans"]
+    assert got["device.lockstep_track"]["count"] == 4
+    assert got["device.lockstep_advance"]["count"] == 4
+    vo.state = vo.state.replace(pose=vo.state.pose.clone())
+    with pytest.raises(RuntimeError, match="pose"):
+        vo.process_frames(*frames[0])
+
+
 def test_entry_points_on_the_card_launch_the_landmark_kernel(dev):
     """``entry()``'s step on the card equals the CPU's on the same inputs
     and draws (one landmark top-2 launch per call), and the dryrun runs on
@@ -619,7 +703,8 @@ def test_graphed_stage_stamps_change_nothing_and_stamp_in_order(dev):
     got = rec.read()
     assert got["frames"] == 24 and got["clock"]["points"] >= 2
     kf = r_on["is_keyframe"]
-    for body, stages in profiling.BODY_STAGES.items():
+    for body in ("track", "keyframe", "advance"):
+        stages = profiling.BODY_STAGES[body]
         cols = [rec._col[body, s] for s in stages]
         st = rec._stamps[2:24][:, cols]
         ran = (st > 0).all(1)

@@ -81,10 +81,13 @@ def jax_keys(jstate):
     return jax.random.split(k, S)
 
 
-def port_step(before, imgs_l, imgs_r, calib, cfg=None, compact=True):
-    """One port step from the JAX state ``before`` (numpy), with the JAX
-    step's own draws: the matches do not depend on the draws, so a first
-    tracking call gives the match masks that the JAX sampler needs."""
+def port_step(before, imgs_l, imgs_r, calib, cfg=None):
+    """One lockstep frame of the port's driver from the JAX state
+    ``before`` (numpy): a CPU ``MultiSeqVO`` set to that state runs its
+    lockstep bodies (the ones the card replays as CUDA graphs) with the
+    JAX step's own draws. The matches do not depend on the draws, so a
+    first tracking call gives the match masks that the JAX sampler
+    needs. Returns (the driver's new state, its StepInfo)."""
     cfg = cfg or SlamConfig(**CFG)
     st = port_state(before)
     kw = step_kwargs(cfg, calib)
@@ -96,10 +99,11 @@ def port_step(before, imgs_l, imgs_r, calib, cfg=None, compact=True):
     idx = np.stack([np.asarray(jpnp._sample_minimal(
         keys[s], jnp.asarray(first.match_lm[s].numpy() >= 0),
         cfg.ransac_hypotheses, 6)) for s in range(S)])
-    return tms.lockstep_step(
-        st, torch.as_tensor(imgs_l), torch.as_tensor(imgs_r), cfg, "pinhole",
-        calib.width, calib.height, kw["pnp_threshold"],
-        compact_inserts=compact, sample_idx=torch.as_tensor(idx))
+    vo = tms.MultiSeqVO(calib, S, cfg, max_frames=st.traj.shape[1],
+                        device="cpu")
+    vo.state = st
+    vo.process_frames(imgs_l, imgs_r, sample_idx=torch.as_tensor(idx))
+    return vo.state, vo.infos[-1]
 
 
 def step_kwargs(cfg, calib):
@@ -162,9 +166,10 @@ def frames_of(records, kind):
 
 @pytest.mark.parametrize("kind", ["tracking", "keyframe", "ba"])
 def test_lockstep_step_matches_jax(lockstep, kind):
-    """One lockstep step from the JAX state, with the JAX draws: a frame
-    that only tracks, one that fires the compact keyframe branch, one that
-    runs a window BA (after the bootstrap, so that it has a map)."""
+    """One lockstep frame of ``MultiSeqVO`` from the JAX state, with the
+    JAX draws: a frame that only tracks, one that serves a keyframe
+    request (one sequence inserts), one that runs a window BA (after the
+    bootstrap, so that it has a map)."""
     _, records = lockstep
     frames = [f for f in frames_of(records, kind) if f >= 2 or kind != "ba"]
     assert frames, f"no {kind} frame in the run"
@@ -179,7 +184,7 @@ def test_lockstep_step_matches_jax(lockstep, kind):
 
 
 def test_lockstep_bootstrap_drains_one_request_per_frame(lockstep):
-    """All S sequences ask for a keyframe at frame 0; the compact branch
+    """All S sequences ask for a keyframe at frame 0; ``MultiSeqVO``
     serves them one per frame in round-robin order, each followed by its
     window BA, as the JAX step does."""
     _, records = lockstep

@@ -148,10 +148,6 @@ class _Graph:
     ptrs: dict
 
 
-_LAUNCH = {name: "launch." + name for name in ("track", "keyframe",
-                                                "advance")}
-
-
 def _tensor_fields(obj, prefix: str = "") -> dict:
     """{dotted field path: tensor} of a state dataclass, nested ones too
     (fields that hold None or a host integer are left out)."""
@@ -177,7 +173,182 @@ def _with_tensors(obj, table: dict, prefix: str = ""):
     return dataclasses.replace(obj, **changes)
 
 
-class StreamingVO:
+def _launch_span(name: str) -> str:
+    """The host span of a body's launch: ``launch.<body>`` (a graph
+    named ``<body>.<index>`` is one of several of that body)."""
+    return "launch." + name.split(".")[0]
+
+
+class GraphBodies:
+    """Running a driver's step bodies eagerly or as CUDA graphs (module
+    docstring), shared by ``StreamingVO`` and
+    ``parallel/multiseq_runner.MultiSeqVO``. The driver holds ``state``
+    (its tensors are the buffers the graphs read and write), ``device``,
+    ``generator`` (registered with every graph), ``spans``,
+    ``cuda_graphs``, ``_graphs`` ({name: _Graph}), ``_warmed``,
+    ``_inputs``, ``_staging`` and ``capture_stats``. A body takes its
+    arguments, returns (the new state or None, its outputs), and reads
+    nothing back to the host; an argument that is a ``_Tracked`` is body
+    ``_TRACK``'s output, which a graph reads where that body's graph
+    writes it."""
+
+    _TRACK = "track"
+
+    def write_state(self, **fields):
+        """Set state fields in place: every tensor given (or every tensor
+        field of a ``KeyframeState`` / ``LandmarkState`` given) is copied
+        into the state's own buffer, where the captured graphs read it.
+        Host fields (``frame``) are set. Host code that changes the state
+        between frames (closure, relocalization, global BA) goes through
+        here; replacing ``self.state``'s tensors instead makes the next
+        replay raise."""
+        self._copy_into(_tensor_fields(self.state),
+                        self.state.replace(**fields))
+
+    def _copy_into(self, base: dict, new):
+        """Copy ``new``'s tensors into the buffers ``base`` (by path) where
+        they are not those buffers, and keep the buffers in the state."""
+        for path, t in _tensor_fields(new).items():
+            if t is not base[path]:
+                base[path].copy_(t)
+        self.state = _with_tensors(new, base)
+
+    def _image(self, img):
+        if not torch.is_tensor(img):
+            img = torch.from_numpy(np.ascontiguousarray(img))
+        return img.to(self.device)
+
+    def _input(self, which: str, img, staging: str = None):
+        """The image as the step reads it: on the eager path the image on
+        the device; with graphs, copied into the fixed buffer ``which``.
+        A host image goes through a pinned copy (pinned buffer
+        ``staging``, by default ``which``) without blocking: the pinned
+        buffer's previous copy has completed by then, as the keyframe
+        decision read after every body T waits for the frame's work."""
+        if not self.cuda_graphs:
+            return self._image(img)
+        src = (img if torch.is_tensor(img)
+               else torch.from_numpy(np.ascontiguousarray(img)))
+        buf = self._inputs.get(which)
+        if buf is None:
+            buf = self._inputs[which] = torch.empty(
+                src.shape, dtype=src.dtype, device=self.device)
+        if src.shape != buf.shape or src.dtype != buf.dtype:
+            raise ValueError(f"{which} image {tuple(src.shape)} {src.dtype}; "
+                             f"the graphs were built for {tuple(buf.shape)} "
+                             f"{buf.dtype}")
+        if src.device.type == "cpu":
+            staging = staging or which
+            pin = self._staging.get(staging)
+            if pin is None:
+                pin = self._staging[staging] = torch.empty(
+                    src.shape, dtype=src.dtype, pin_memory=True)
+            pin.copy_(src)
+            src = pin
+        buf.copy_(src, non_blocking=True)
+        return buf
+
+    # ---------------------------------------------------------------
+    # running the bodies: eagerly, or as CUDA graphs
+    # ---------------------------------------------------------------
+
+    def _run_body(self, body, args):
+        """Run a body and copy the state it returns into the buffers."""
+        base = _tensor_fields(self.state)
+        new, out = body(*args)
+        self._copy_into(base, new if new is not None else self.state)
+        return out
+
+    def _step(self, name: str, body, *args):
+        with self.spans.span(_launch_span(name)):
+            return self._launch(name, body, args)
+
+    def _launch(self, name: str, body, args):
+        if not self.cuda_graphs:
+            return self._run_body(body, args)
+        g = self._graphs.get(name)
+        if g is not None:
+            return self._replay(name, g)
+        # a graph reads body T's outputs where T's graph writes them
+        # (T is captured first: it runs first in every frame)
+        graph_args = tuple(self._graphs[self._TRACK].out
+                           if isinstance(a, _Tracked) else a for a in args)
+        if name in self._warmed:   # graphs dropped: capture, then replay
+            g = self._graphs[name] = self._capture(name, body, graph_args)
+            return self._replay(name, g)
+        with self.spans.setup("first_run." + name):
+            out = self._warm_up(body, args)
+            torch.cuda.synchronize(self.device)
+        self._warmed.add(name)
+        self._graphs[name] = self._capture(name, body, graph_args)
+        return out
+
+    def _warm_up(self, body, args):
+        """A body's first run: eager, on a side stream (as
+        ``torch.cuda.graphs`` prescribes before a capture), doing the
+        frame's work."""
+        cur = torch.cuda.current_stream(self.device)
+        # the stream the window BA's IF bodies are captured on: its cuBLAS
+        # workspace is then made here, outside the graphs' pools
+        side = cuda_graphs.side_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self._run_body(body, args)
+        cur.wait_stream(side)
+        return out
+
+    def _capture(self, name: str, body, args) -> _Graph:
+        """Capture a body as a CUDA graph (nothing runs); raises if the
+        capture fails. The capture's kernel launches are counted per
+        replay, not here."""
+        torch.cuda.synchronize(self.device)
+        if not self.capture_stats:   # the spans' first clock calibration
+            self.spans.calibrate()
+        torch.cuda.empty_cache()
+        if not self._graphs:   # the first graph of a set makes its pool
+            self._pool = torch.cuda.graph_pool_handle()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        ptrs = {p: t.data_ptr() for p, t in _tensor_fields(self.state).items()}
+        before = dict(cuda_hamming.LAUNCHES)
+        try:
+            # thread_local: other threads (an image decoder, say) may use
+            # the card while the step is captured
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                out = self._run_body(body, args)
+        except Exception as e:
+            raise RuntimeError(f"capture of the step's {name} body failed "
+                               f"(there is no eager fallback)") from e
+        finally:
+            launches = {k: cuda_hamming.LAUNCHES[k] - n
+                        for k, n in before.items()}
+            cuda_hamming.LAUNCHES.update(before)
+        torch.cuda.synchronize(self.device)
+        self.capture_stats[name] = dict(
+            seconds=time.perf_counter() - t0,
+            pool_reserved_bytes=(torch.cuda.memory_reserved(self.device)
+                                 - reserved))
+        return _Graph(graph, out, launches, ptrs)
+
+    def _replay(self, name: str, g: _Graph):
+        with self.spans.span("replay.check", _launch_span(name)):
+            for path, t in _tensor_fields(self.state).items():
+                if g.ptrs.get(path) != t.data_ptr():
+                    raise RuntimeError(
+                        f"the {name} graph was captured with state buffer "
+                        f"{path} at another address: host code replaced "
+                        f"the tensor instead of writing it in place "
+                        f"(write_state)")
+        g.graph.replay()
+        for k, n in g.launches.items():
+            cuda_hamming.LAUNCHES[k] += n
+        return g.out
+
+
+class StreamingVO(GraphBodies):
     """Stereo VO runner on one device (see module docstring): the card
     unless the caller asks for another (``device="cpu"``); raises where
     there is no card and none was asked for.
@@ -320,58 +491,6 @@ class StreamingVO:
                 f"{name!r} is not live-tunable (it sizes the state's "
                 f"buffers); rebuild the driver with a new SlamConfig. "
                 f"Tunable: {sorted(TUNE_INDEX) + sorted(HOST_TUNABLE)}")
-
-    def write_state(self, **fields):
-        """Set state fields in place: every tensor given (or every tensor
-        field of a ``KeyframeState`` / ``LandmarkState`` given) is copied
-        into the state's own buffer, where the captured graphs read it.
-        Host fields (``frame``) are set. Host code that changes the state
-        between frames (closure, relocalization, global BA) goes through
-        here; replacing ``self.state``'s tensors instead makes the next
-        replay raise."""
-        self._copy_into(_tensor_fields(self.state),
-                        self.state.replace(**fields))
-
-    def _copy_into(self, base: dict, new: StreamState):
-        """Copy ``new``'s tensors into the buffers ``base`` (by path) where
-        they are not those buffers, and keep the buffers in the state."""
-        for path, t in _tensor_fields(new).items():
-            if t is not base[path]:
-                base[path].copy_(t)
-        self.state = _with_tensors(new, base)
-
-    def _image(self, img):
-        if not torch.is_tensor(img):
-            img = torch.from_numpy(np.ascontiguousarray(img))
-        return img.to(self.device)
-
-    def _input(self, which: str, img):
-        """The image as the step reads it: on the eager path the image on
-        the device; with graphs, copied into the fixed buffer ``which``.
-        A host image goes through a pinned copy without blocking: the
-        buffer's previous copy has completed by then, as the keyframe
-        decision read after every body T waits for the frame's work."""
-        if not self.cuda_graphs:
-            return self._image(img)
-        src = (img if torch.is_tensor(img)
-               else torch.from_numpy(np.ascontiguousarray(img)))
-        buf = self._inputs.get(which)
-        if buf is None:
-            buf = self._inputs[which] = torch.empty(
-                src.shape, dtype=src.dtype, device=self.device)
-        if src.shape != buf.shape or src.dtype != buf.dtype:
-            raise ValueError(f"{which} image {tuple(src.shape)} {src.dtype}; "
-                             f"the graphs were built for {tuple(buf.shape)} "
-                             f"{buf.dtype}")
-        if src.device.type == "cpu":
-            pin = self._staging.get(which)
-            if pin is None:
-                pin = self._staging[which] = torch.empty(
-                    src.shape, dtype=src.dtype, pin_memory=True)
-            pin.copy_(src)
-            src = pin
-        buf.copy_(src, non_blocking=True)
-        return buf
 
     def _read(self, flag) -> bool:
         """The one host read of a frame: ``flag`` through a pinned scalar
@@ -559,105 +678,6 @@ class StreamingVO:
             lost_run=torch.where(ok | do_kf, torch.zeros_like(st.lost_run),
                                  st.lost_run + 1).to(torch.int32),
             take_kf=take_next, last_kf_slot=last_slot)
-
-    # ---------------------------------------------------------------
-    # running the bodies: eagerly, or as CUDA graphs
-    # ---------------------------------------------------------------
-
-    def _run_body(self, body, args):
-        """Run a body and copy the state it returns into the buffers."""
-        base = _tensor_fields(self.state)
-        new, out = body(*args)
-        self._copy_into(base, new if new is not None else self.state)
-        return out
-
-    def _step(self, name: str, body, *args):
-        with self.spans.span(_LAUNCH[name]):
-            return self._launch(name, body, args)
-
-    def _launch(self, name: str, body, args):
-        if not self.cuda_graphs:
-            return self._run_body(body, args)
-        g = self._graphs.get(name)
-        if g is not None:
-            return self._replay(name, g)
-        # a graph reads body T's outputs where T's graph writes them
-        # (T is captured first: it runs first in every frame)
-        graph_args = tuple(self._graphs["track"].out
-                           if isinstance(a, _Tracked) else a for a in args)
-        if name in self._warmed:   # graphs dropped: capture, then replay
-            g = self._graphs[name] = self._capture(name, body, graph_args)
-            return self._replay(name, g)
-        with self.spans.setup("first_run." + name):
-            out = self._warm_up(body, args)
-            torch.cuda.synchronize(self.device)
-        self._warmed.add(name)
-        self._graphs[name] = self._capture(name, body, graph_args)
-        return out
-
-    def _warm_up(self, body, args):
-        """A body's first run: eager, on a side stream (as
-        ``torch.cuda.graphs`` prescribes before a capture), doing the
-        frame's work."""
-        cur = torch.cuda.current_stream(self.device)
-        # the stream the window BA's IF bodies are captured on: its cuBLAS
-        # workspace is then made here, outside the graphs' pools
-        side = cuda_graphs.side_stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = self._run_body(body, args)
-        cur.wait_stream(side)
-        return out
-
-    def _capture(self, name: str, body, args) -> _Graph:
-        """Capture a body as a CUDA graph (nothing runs); raises if the
-        capture fails. The capture's kernel launches are counted per
-        replay, not here."""
-        torch.cuda.synchronize(self.device)
-        if not self.capture_stats:   # the spans' first clock calibration
-            self.spans.calibrate()
-        torch.cuda.empty_cache()
-        if not self._graphs:   # the first graph of a set makes its pool
-            self._pool = torch.cuda.graph_pool_handle()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        ptrs = {p: t.data_ptr() for p, t in _tensor_fields(self.state).items()}
-        before = dict(cuda_hamming.LAUNCHES)
-        try:
-            # thread_local: other threads (an image decoder, say) may use
-            # the card while the step is captured
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  capture_error_mode="thread_local"):
-                out = self._run_body(body, args)
-        except Exception as e:
-            raise RuntimeError(f"capture of the step's {name} body failed "
-                               f"(there is no eager fallback)") from e
-        finally:
-            launches = {k: cuda_hamming.LAUNCHES[k] - n
-                        for k, n in before.items()}
-            cuda_hamming.LAUNCHES.update(before)
-        torch.cuda.synchronize(self.device)
-        self.capture_stats[name] = dict(
-            seconds=time.perf_counter() - t0,
-            pool_reserved_bytes=(torch.cuda.memory_reserved(self.device)
-                                 - reserved))
-        return _Graph(graph, out, launches, ptrs)
-
-    def _replay(self, name: str, g: _Graph):
-        with self.spans.span("replay.check", _LAUNCH[name]):
-            for path, t in _tensor_fields(self.state).items():
-                if g.ptrs.get(path) != t.data_ptr():
-                    raise RuntimeError(
-                        f"the {name} graph was captured with state buffer "
-                        f"{path} at another address: host code replaced "
-                        f"the tensor instead of writing it in place "
-                        f"(write_state)")
-        g.graph.replay()
-        for k, n in g.launches.items():
-            cuda_hamming.LAUNCHES[k] += n
-        return g.out
 
     def process_frame(self, img_l, img_r):
         """Track one stereo pair (uint8 [H, W] arrays or tensors): body T,

@@ -6,9 +6,10 @@ the wall-clock stage timers of ``utils/metrics.StageTimer``; and the two
 timings the measurement tools and ``chip_smoke.py`` take of one call:
 ``wall_ms`` (blocking) and ``device_ms`` (a profiler window).
 
-``SpanRecorder`` keeps the streaming driver's per-frame spans: stage
+``SpanRecorder`` keeps a driver's per-frame spans (the streaming
+driver's frames, or the multi-sequence driver's lockstep frames): stage
 stamps taken inside its step's bodies (on the card, kernels captured
-into the CUDA graphs), host spans of ``process_frame`` and counters, all
+into the CUDA graphs), host spans of its frame step and counters, all
 on the host's ``perf_counter_ns`` clock; ``latest_spans()`` is the newest
 driver's recorder.
 """
@@ -152,29 +153,45 @@ def device_ms(fn, only: str = "", iters: int = 20, windows: int = 3,
 # per-frame spans of the streaming driver
 # ---------------------------------------------------------------------------
 
-# the stage boundaries each body of ``pipeline/streaming.StreamingVO``
-# stamps, in order: a stage (span ``<body>.<stage>``) runs from the
-# previous boundary's stamp to its own, a body (span ``device.<body>``)
-# from its first stamp to its last; body A has no stage inside
+# the stage boundaries each body stamps, in order: a stage (span
+# ``<body>.<stage>``) runs from the previous boundary's stamp to its own, a
+# body (span ``device.<body>``) from its first stamp to its last; a body of
+# two boundaries has no stage inside. Bodies T, K and A of
+# ``pipeline/streaming.StreamingVO``, then the lockstep bodies of
+# ``parallel/multiseq_runner.MultiSeqVO``: batched tracking, the picked
+# sequence's keyframe insert and its window BA, and the advance
 BODY_STAGES = {
     "track": ("start", "extract", "project", "k1", "pnp", "decide"),
     "keyframe": ("start", "extract_right", "k2", "insert", "evict_cull",
                  "ba_build", "ba_solve", "ba_merge", "advance"),
     "advance": ("start", "end"),
+    "lockstep_track": ("start", "extract", "project", "k1", "pnp", "decide"),
+    "lockstep_insert": ("start", "extract_right", "k2", "insert",
+                        "evict_cull"),
+    "lockstep_ba": ("start", "ba_build", "ba_solve", "ba_merge"),
+    "lockstep_advance": ("start", "end"),
 }
-# counters body K writes per keyframe: the window BA's LM bodies that did
-# work (``solve_ba_schur``'s iterations, the bodies a replay runs) and the
-# bodies captured (``ba_max_iters``; a replay skips the rest)
-COUNTERS = ("lm_live", "lm_run")
-# host spans of ``process_frame``: (name, parent)
+# counters, each with the bodies that write it (a frame holds a counter
+# where one of them ran): the window BA's LM bodies that did work
+# (``solve_ba_schur``'s iterations, the bodies a replay runs) and the
+# bodies captured (``ba_max_iters``; a replay skips the rest), per
+# keyframe of body K or per lockstep window BA; and per lockstep frame
+# the sequences whose keyframe request was waiting at its start and the
+# sequences that inserted a keyframe in it
+COUNTERS = ("lm_live", "lm_run", "kf_pending_n", "inserted_n")
+COUNTER_BODIES = {"lm_live": ("keyframe", "lockstep_ba"),
+                  "lm_run": ("keyframe", "lockstep_ba"),
+                  "kf_pending_n": ("lockstep_track",),
+                  "inserted_n": ("lockstep_advance",)}
+_LAUNCHES = tuple("launch." + body for body in BODY_STAGES)
+# host spans of a frame step: (name, parent)
 HOST_SPANS = (
-    ("frame", None), ("input.left", "frame"), ("launch.track", "frame"),
-    ("replay.check", "launch.track"), ("read", "frame"),
-    ("input.right", "frame"), ("launch.keyframe", "frame"),
-    ("replay.check", "launch.keyframe"), ("launch.advance", "frame"),
-    ("replay.check", "launch.advance"))
-IDLE_HOST = {"launch": ("launch.track", "launch.keyframe", "launch.advance"),
-             "read": ("read",), "input": ("input.left", "input.right")}
+    ("frame", None), ("input.left", "frame"), ("read", "frame"),
+    ("input.right", "frame")) + tuple(
+    pair for name in _LAUNCHES
+    for pair in ((name, "frame"), ("replay.check", name)))
+IDLE_HOST = {"launch": _LAUNCHES, "read": ("read",),
+             "input": ("input.left", "input.right")}
 RING_FRAMES = 1024
 
 _latest = None
@@ -518,10 +535,12 @@ class SpanRecorder(NoSpans):
         return np.where(np.isnan(d).all(0), np.nan, np.nansum(d, 0)) / 1e6
 
     def counter(self, name: str, first: int = 0, stop: Optional[int] = None):
-        """Per frame of [first, stop): counter ``name``, NaN where body K
-        did not run."""
+        """Per frame of [first, stop): counter ``name``, NaN where none of
+        the bodies that write it (``COUNTER_BODIES``) ran."""
         a, b = self._range(first, stop)
-        ran = self._stamps[a:b, self._col["keyframe", "start"]] > 0
+        ran = np.zeros(b - a, bool)
+        for body in COUNTER_BODIES[name]:
+            ran |= self._stamps[a:b, self._col[body, "start"]] > 0
         return np.where(ran, self._stamps[a:b, self._col[name]].astype(
             np.float64), np.nan)
 
